@@ -1,0 +1,379 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+holds each kernel against its plain PyTorch version on the card (adversarial
+words at the test shapes and at the rm2 and rm5 shapes, plus the pinned NaN
+and +inf edge cases), then drives the port's main path at full RM2 width —
+``TorchPreStoEngine.produce_stream`` over an 8-partition ``PartitionedStore``,
+once at megabatch 1 and once at megabatch 2 — and holds every delivered
+batch against the port's plain path (the same engine on the CPU).  It prints
+per-kernel times beside their bounds, the main path's time split, one JSON
+line describing the kernels, the card's name and power limit, and, as its
+last line, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+before that line.  Without a CUDA device it exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
+DENSE_TOL = dict(rtol=1e-6, atol=1e-6, equal_nan=True)  # log1p: 1 ulp
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
+REPLACES = {
+    "fused_dense": "src/repro/kernels/fused.py:32",
+    "fused_sparse": "src/repro/kernels/fused.py:106",
+    "fused_gen": "src/repro/kernels/fused.py:81",
+}
+TEST_WIDTHS = (1, 6, 7, 17, 24, 31, 32)
+# kernel-vs-plain cases: the test shapes (G not a multiple of 128), then the
+# rm2 page shapes and, for fused_gen, rm5's 4096 boundaries
+DENSE_CASES = ((3, 1), (3, 130), (504, 2048))  # (F, G)
+SPARSE_CASES = ((3, 1, TEST_WIDTHS), (3, 130, TEST_WIDTHS), (42, 8192, (24,)))
+GEN_CASES = ((3, 1, 32), (3, 130, 32), (3, 1, 600), (3, 130, 600),
+             (21, 2048, 1024), (42, 2048, 4096))  # (F, G, m)
+MAIN_CONFIG, MAIN_ROWS = "rm2", None  # full width, 8192 rows per partition
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def words(rng, shape, device) -> torch.Tensor:
+    """Arbitrary uint32 words (NaN, +-inf and denormals decode from them)."""
+    w = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(device)
+
+
+def sorted_bounds(rng, f, m, device) -> torch.Tensor:
+    """Sorted, NaN-free boundaries over the whole float range, with repeats."""
+    v = np.sign(rng.standard_normal((f, m))) * 10.0 ** rng.uniform(-40, 38, (f, m))
+    v[:, 1::5] = v[:, ::5][:, : v[:, 1::5].shape[1]]
+    return torch.from_numpy(np.sort(v.astype(np.float32), axis=-1)).to(device)
+
+
+def max_abs_err(out: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |out - want| over elements where both are finite (0 for equal
+    integers); NaN and inf agreement is checked separately."""
+    if out.dtype.is_floating_point:
+        both = torch.isfinite(out) & torch.isfinite(want)
+        d = (out - want).abs()[both]
+        return float(d.max()) if d.numel() else 0.0
+    return float((out.to(torch.int64) - want.to(torch.int64)).abs().max()) if out.numel() else 0.0
+
+
+def hold(name: str, out: torch.Tensor, want: torch.Tensor, errs: dict) -> None:
+    """Kernel output against its plain version: bitwise for integers,
+    DENSE_TOL for the log-normalized floats."""
+    torch.cuda.synchronize()
+    if out.dtype.is_floating_point:
+        torch.testing.assert_close(out, want, **DENSE_TOL, msg=lambda m: f"{name}: {m}")
+    else:
+        check(torch.equal(out, want), f"{name}: kernel differs from its plain version")
+    errs[name] = max(errs.get(name, 0.0), max_abs_err(out, want))
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    dt = time.perf_counter() - t0
+    regs = [int(l.split("Used ")[1].split()[0]) for lg in logs.values()
+            for l in lg.splitlines() if "Used " in l and " registers" in l]
+    spills = [int(l.split("bytes spill stores")[0].split(",")[-1]) for lg in logs.values()
+              for l in lg.splitlines() if "bytes spill stores" in l]
+    print(f"build: {len(logs)} source(s) with nvcc in {dt:.2f} s; ptxas: "
+          f"{len(regs)} kernel entries, max {max(regs, default=0)} registers, "
+          f"{sum(spills)} bytes of spill stores")
+
+
+def phase_kernels(rng, dev, errs: dict) -> None:
+    """Every kernel against its plain version on adversarial inputs."""
+    from repro_torch.data import encoding as enc
+    from repro_torch.kernels import fused, ops, ref
+
+    params = lambda f: ops.hash_params(  # noqa: E731
+        rng.integers(0, 2**32, f, dtype=np.uint32),
+        rng.integers(1, 2**32, f, dtype=np.uint32), dev)
+    cases = 0
+    for f, g in DENSE_CASES:
+        w = words(rng, (f, g, 4), dev)
+        hold("fused_dense", fused.fused_dense(w), ref.fused_dense(w), errs)
+        cases += 1
+    for f, g, widths in SPARSE_CASES:
+        for width in widths:
+            w, p = words(rng, (f, g, width), dev), params(f)
+            hold("fused_sparse", fused.fused_sparse(w, p, width=width),
+                 ref.fused_sparse(w, p, width=width), errs)
+            cases += 1
+    for f, g, m in GEN_CASES:
+        w, p = words(rng, (f, g, 4), dev), params(f)
+        b = ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev)
+        hold("fused_gen", fused.fused_gen(w, b, p), ref.fused_gen(w, b, p), errs)
+        cases += 1
+
+    # C1: +inf counts the +inf padding, NaN counts nothing; subnormal values
+    # and boundaries compare as zero, as in the reference
+    for vals, bounds, counts in (
+        ([np.nan, np.inf, -np.inf, 1.0], [0.5, 1.0, 2.0, 3.0], [0, 128, 0, 2]),
+        ([np.nan, np.inf, 0.0, 1e30], list(np.linspace(-1, 1, 1024)), [0, 1024, 512, 1024]),
+        ([-5e-40, 5e-40, 1e-45, -0.0], [-1e-39, 0.0, 1e-39, 1.0], [3, 3, 3, 3]),
+    ):
+        planes, _ = enc.bytesplit_encode(np.asarray(vals, np.float32))
+        w = ops.as_words(ops.regroup_bytesplit(planes, 4)[None]).to(dev)
+        b = ops.pad_boundaries(np.asarray([bounds], np.float32), dev)
+        p = ops.hash_params([12345], [2**32 - 1], dev)
+        out = fused.fused_gen(w, b, p).reshape(-1)
+        want = ref.sigridhash(torch.tensor(counts, device=dev), 12345, 2**32 - 1)
+        check(torch.equal(ref.fused_gen(w, b, p).reshape(-1), want), "plain C1 counts")
+        hold("fused_gen", out, want, errs)
+        cases += 1
+    # C5: NaN survives max(x, 0); negatives and -inf go to 0
+    planes, _ = enc.bytesplit_encode(np.asarray([np.nan, -1.0, -np.inf, np.inf], np.float32))
+    w = ops.as_words(ops.regroup_bytesplit(planes, 4)[None]).to(dev)
+    out = fused.fused_dense(w).reshape(-1).cpu()
+    check(bool(torch.isnan(out[0])), "fused_dense lost the NaN")
+    check(out[1:].tolist() == [0.0, 0.0, float("inf")], f"fused_dense edge values {out}")
+    hold("fused_dense", fused.fused_dense(w), ref.fused_dense(w), errs)
+    cases += 1
+    print(f"kernels: {cases} cases, every kernel equals its plain version "
+          f"(integers bitwise, dense rtol=atol=1e-6 with NaN equal)")
+
+
+def phase_main_path(dev):
+    """rm2 at full width through TorchPreStoEngine.produce_stream."""
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.data.synth import make_rm_source
+    from repro_torch.kernels import fused
+
+    src = make_rm_source(MAIN_CONFIG, rows=MAIN_ROWS, seed=0)
+    spec = TransformSpec.from_source(src)
+    store = PartitionedStore(8, num_devices=4, source=src)
+    engine = TorchPreStoEngine(spec)
+    rows = src.rows
+
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    first = list(engine.produce_stream(store, range(4)))
+    t1 = time.perf_counter()
+    second = list(engine.produce_stream(store, range(4, 8), megabatch=2))
+    t2 = time.perf_counter()
+    launches = dict(fused.LAUNCHES)
+    print(f"main path: {MAIN_CONFIG} rows={rows}, 8 partitions, launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was never launched on the main path")
+    delivered = first + second
+    check([pid for pid, _ in delivered] == list(range(8)), "pids out of order")
+    print(f"main path: delivered {4 * rows / (t1 - t0):.1f} samples/s at megabatch 1, "
+          f"{4 * rows / (t2 - t1):.1f} samples/s at megabatch 2 (overlap on, wall clock)")
+
+    plain = TorchPreStoEngine(spec, device="cpu")
+    for pid, mb in delivered:
+        want = plain.produce_batch(store, pid)
+        for key, v in want.items():
+            got = mb[key].cpu()
+            check(got.shape == v.shape and got.dtype == v.dtype, f"{key} shape/dtype")
+            if key == "dense":
+                torch.testing.assert_close(got, v, **DENSE_TOL)
+            else:
+                check(torch.equal(got, v), f"pid {pid} {key} differs from the plain path")
+        cfg = spec.cfg
+        check(mb["dense"].shape == (rows, cfg.n_dense)
+              and mb["multi_hot_ids"].shape == (rows, cfg.n_sparse, cfg.max_sparse_len),
+              "batch shapes")
+    print("main path: 8 batches equal the plain path (integers and labels bitwise, "
+          "dense rtol=atol=1e-6)")
+    del first, second, delivered
+    return engine, store, launches
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Median CUDA-event time of `fn`, L2 flushed before each launch."""
+    fn()
+    marks = []
+    for _ in range(reps):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def phase_timings(engine, store, dev, errs: dict, launches_by_kernel: dict):
+    """Kernel times at the main path's rm2 inputs, and the path's split."""
+    from repro_torch.core.opgraph import prepare_env
+    from repro_torch.kernels import fused, ops, ref
+
+    spec, cfg = engine.spec, engine.spec.cfg
+    pages = engine.put_pages(engine.pin_pages(engine.stage_partition(store, 0)))
+    env = prepare_env(pages, engine.lowered_plan.gen_index)
+    dense_w, sparse_w, gen_w = env["dense_words"], env["sparse_words"], env["gen_words"]
+    sp = ops.hash_params(spec.sparse_seeds, spec.sparse_max, dev)
+    gp = ops.hash_params(spec.gen_seeds, spec.gen_max, dev)
+    bounds = ops.pad_boundaries(spec.bucket_boundaries, dev)
+    width, m = cfg.id_width, bounds.shape[1]
+    decoded_dense = ref.bytesplit_decode_grouped(dense_w)
+    decoded_gen = ref.bytesplit_decode_grouped(gen_w).reshape(gen_w.shape[0], -1)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > L2
+
+    def nvals(t, per_group):
+        return t.shape[0] * t.shape[1] * per_group
+
+    search_steps = int(np.ceil(np.log2(m + 1)))
+    rows_spec = {
+        "fused_dense": dict(
+            run=lambda: fused.fused_dense(dense_w), plain=lambda: ref.fused_dense(dense_w),
+            yard=lambda: torch.log1p(torch.clamp_min(decoded_dense, 0)),
+            yard_name="torch.log1p(torch.clamp_min(x, 0)) on decoded floats",
+            nbytes=dense_w.numel() * 4 * 2, ops=nvals(dense_w, 4) * 24),
+        "fused_sparse": dict(
+            run=lambda: fused.fused_sparse(sparse_w, sp, width=width),
+            plain=lambda: ref.fused_sparse(sparse_w, sp, width=width),
+            yard=None, yard_name="the plain ref function (no library call decodes bitpack)",
+            nbytes=sparse_w.numel() * 4 + sp.numel() * 4 + nvals(sparse_w, 32) * 4,
+            ops=nvals(sparse_w, 32) * 16),
+        "fused_gen": dict(
+            run=lambda: fused.fused_gen(gen_w, bounds, gp),
+            plain=lambda: ref.fused_gen(gen_w, bounds, gp),
+            yard=lambda: torch.searchsorted(bounds, decoded_gen, right=True),
+            yard_name="torch.searchsorted(bounds, x, right=True) on decoded floats",
+            nbytes=gen_w.numel() * 4 * 2 + bounds.numel() * 4 + gp.numel() * 4,
+            ops=nvals(gen_w, 4) * (16 + 3 * search_steps)),
+    }
+    out = []
+    for name, r in rows_spec.items():
+        hold(name, r["run"](), r["plain"](), errs)
+        ms = time_ms(r["run"], 50, flush)
+        plain_ms = time_ms(r["plain"], 5, flush)
+        yard_ms = time_ms(r["yard"], 20, flush) if r["yard"] else None
+        bytes_ms = r["nbytes"] / PEAK_BYTES_PER_S * 1e3
+        ops_ms = r["ops"] / PEAK_OPS_PER_S * 1e3
+        bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+        print(f"kernel {name} rm2: {ms:.4f} ms, {r['nbytes']} bytes, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, yardstick "
+              f"{'n/a' if yard_ms is None else f'{yard_ms:.4f} ms'} [{r['yard_name']}]")
+        out.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": launches_by_kernel[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "yardstick": r["yard_name"], "yardstick_ms": yard_ms,
+        })
+
+    # main path split per partition (megabatch 1): host staging, copy in,
+    # device compute
+    split = []
+    for pid in (1, 2):
+        t0 = time.perf_counter()
+        pinned = engine.pin_pages(engine.stage_megabatch(store, [pid]))
+        stage_s = time.perf_counter() - t0
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        dev_pages = engine.put_pages(pinned)
+        e[1].record()
+        engine.preprocess_megabatch(dev_pages)
+        e[2].record()
+        torch.cuda.synchronize()
+        split.append((stage_s, e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])))
+    st, h2d, comp = (statistics.mean(x) for x in zip(*split))
+    nbytes = sum(v.numel() * 4 for v in pinned.values())
+    print(f"main path split per rm2 partition (mean of 2): host staging {st:.3f} s "
+          f"(synthetic generation + page build + pin), H2D {h2d:.3f} ms for {nbytes} bytes, "
+          f"device compute {comp:.3f} ms")
+    t0 = time.perf_counter()
+    serial = list(engine.produce_stream(store, range(4), overlap=False))
+    print(f"main path: {len(serial) * store.source.rows / (time.perf_counter() - t0):.1f} "
+          f"samples/s at megabatch 1 with overlap off (serial), wall clock")
+    profile_transform(engine, dev_pages)
+    return out
+
+
+def profile_transform(engine, dev_pages) -> None:
+    """Device time of one partition's Transform by kernel, from the profiler:
+    the fused kernels against the PyTorch glue.  Only rows that are device
+    activity are summed (the op that launched a kernel reports its time too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.preprocess_megabatch(dev_pages)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.preprocess_megabatch(dev_pages)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    if not rows:
+        print("profile: the profiler saw no device time (not measured)")
+        return
+    total_us = sum(t for _, _, t in rows)
+    fused_us = sum(t for k, _, t in rows if "fused_" in k and "_kernel" in k)
+    print(f"profile: one rm2 partition's Transform is {sum(c for _, c, _ in rows)} device "
+          f"activities, {total_us:.1f} us busy; the 3 fused kernels {fused_us:.1f} us, "
+          f"PyTorch glue {total_us - fused_us:.1f} us")
+    for key, count, t in sorted(rows, key=lambda r: -r[2])[:10]:
+        print(f"profile:   {t:9.1f} us  x{count}  {key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    rng = np.random.default_rng(0)
+    errs: dict = {}
+    phase_build()
+    phase_kernels(rng, dev, errs)
+    torch.cuda.synchronize()
+    engine, store, launches = phase_main_path(dev)
+    torch.cuda.synchronize()
+    kernels = phase_timings(engine, store, dev, errs, launches)
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

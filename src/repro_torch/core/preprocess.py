@@ -1,0 +1,142 @@
+"""The ETL Transform: encoded pages -> train-ready mini-batch.
+
+The port of ``repro.core.preprocess``.  The Transform is declared once as an
+operator graph (``repro_torch.core.opgraph``) and lowered per placement;
+everything here is a thin wrapper over that lowering.  Page staging stays
+numpy on the host (it is the same layout the JAX package builds); the
+Transform runs on PyTorch tensors, on the device the pages were put on.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.opgraph import (
+    LoweredPlan,
+    build_transform_graph,
+    lower,
+    resolve_placements,
+)
+from repro_torch.core.spec import TransformSpec
+from repro_torch.data.columnar import Partition, partition_refs
+from repro_torch.kernels import ops as K
+
+MiniBatch = Dict[str, torch.Tensor]
+
+
+class ShapeDtype(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+# ---------------------------------------------------------------------------
+# Host-side page staging: Partition (numpy, flat pages) -> kernel layout
+
+
+def pages_from_partition(part: Partition, spec: TransformSpec) -> Dict[str, np.ndarray]:
+    """Stack per-column pages into the grouped uint32 arrays the kernels
+    consume.  Dedup partitions (``schema.dup_factor > 1``) stage their
+    sparse/length pages at unique-block geometry plus a ``sparse_refs``
+    vector, exactly as the JAX package does; the Transform of such pages is
+    a later slice (``execute_plan`` raises)."""
+    cfg = spec.cfg
+    rows = part.schema.rows
+    u = part.schema.unique_rows  # == rows for classic partitions
+    dense = []
+    for i in range(cfg.n_dense):
+        col = part.columns[f"d{i}"]
+        dense.append(K.regroup_bytesplit(col.pages["data"], rows))
+    sparse, lengths = [], []
+    n_vals = u * cfg.max_sparse_len
+    for i in range(cfg.n_sparse):
+        col = part.columns[f"s{i}"]
+        sparse.append(K.regroup_bitpack(col.pages["values"], n_vals, cfg.id_width))
+        lengths.append(K.regroup_bitpack(col.pages["lengths"], u, cfg.len_width))
+    label_words = part.columns["label"].pages["data"][:rows]
+    pages = {
+        "dense_words": np.stack(dense),  # (n_dense, rows/4, 4) u32
+        "sparse_words": np.stack(sparse),  # (n_sparse, u*L/32, w) u32
+        "length_words": np.stack(lengths),  # (n_sparse, u/32, lw) u32
+        "label_words": label_words,  # (rows,) u32
+    }
+    refs = partition_refs(part)
+    if refs is not None:
+        pages["sparse_refs"] = refs.astype(np.int32)  # (rows,) block index
+    return pages
+
+
+def stack_pages(pages_list) -> Dict[str, np.ndarray]:
+    """Stack K partitions' staged pages into one leading-axis megabatch."""
+    pages_list = list(pages_list)
+    if len(pages_list) == 1:
+        return {k: v[None] for k, v in pages_list[0].items()}
+    return {k: np.stack([p[k] for p in pages_list]) for k in pages_list[0]}
+
+
+def flatten_megabatch(stacked: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fold the leading megabatch axis into the row-group axis.
+
+    Every page array is grouped ``(features, row_groups, words)`` with the
+    feature axis leading (labels are flat ``(rows,)``), and every operator in
+    the standard Transform is row-local — so a K-partition megabatch is
+    exactly a single partition with K x the rows: ``(K, F, G, w)`` becomes
+    ``(F, K*G, w)`` (partition-major row order) and ``(K, R)`` becomes
+    ``(K*R,)``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in stacked.items():
+        if name == "sparse_refs":
+            raise NotImplementedError("dedup pages (sparse_refs): later slice")
+        if v.dim() == 2:  # label_words: (K, rows) -> (K*rows,)
+            out[name] = v.reshape(-1)
+        else:  # (K, F, G, w) -> (F, K*G, w)
+            k, f, g, w = v.shape
+            out[name] = v.movedim(0, 1).reshape(f, k * g, w)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Transform entry points (all lowered from the operator graph)
+
+
+def execute_plan(plan: LoweredPlan, pages: Dict[str, torch.Tensor]) -> MiniBatch:
+    """Run a lowered plan over staged page tensors."""
+    if "sparse_refs" in pages:
+        raise NotImplementedError("dedup pages (sparse_refs): later slice")
+    return plan.execute(pages)
+
+
+def preprocess_pages(
+    pages: Dict[str, torch.Tensor], spec: TransformSpec, *, mode="fused"
+) -> MiniBatch:
+    """Full Transform for one partition's page tensors (int32 views of the
+    uint32 words), on the device they lie on.
+
+    Output:
+      dense          (rows, n_dense) f32      — Log-normalized
+      multi_hot_ids  (rows, n_sparse, L) i32  — SigridHashed raw sparse ids
+      lengths        (rows, n_sparse) i32     — multi-hot lengths
+      one_hot_ids    (rows, n_generated) i32  — Bucketize+SigridHash generated
+      labels         (rows,) f32
+    """
+    placements = resolve_placements(mode, spec)
+    plan = lower(
+        build_transform_graph(spec), spec, placements,
+        device=pages["dense_words"].device,
+    )
+    return execute_plan(plan, pages)
+
+
+def minibatch_shape_dtypes(spec: TransformSpec, rows: int) -> Dict[str, ShapeDtype]:
+    cfg = spec.cfg
+    return {
+        "dense": ShapeDtype((rows, cfg.n_dense), torch.float32),
+        "multi_hot_ids": ShapeDtype(
+            (rows, cfg.n_sparse, cfg.max_sparse_len), torch.int32
+        ),
+        "lengths": ShapeDtype((rows, cfg.n_sparse), torch.int32),
+        "one_hot_ids": ShapeDtype((rows, cfg.n_generated), torch.int32),
+        "labels": ShapeDtype((rows,), torch.float32),
+    }

@@ -1,0 +1,209 @@
+"""TorchPreStoEngine: the ISP worker's unit of work, on one CUDA device.
+
+The port of the local (mesh-less) half of ``repro.core.presto.PreStoEngine``
+in ``presto`` placement: every column family runs on the ISP unit, so a
+partition's encoded pages go to the device once and come back as a
+train-ready mini-batch, with the three fused CUDA kernels doing all of the
+Transform's work.  The meshed and host/hybrid paths are later slices.
+
+Produce path: the host reads a partition and builds its numpy pages, copies
+them into pinned memory, and the device copies them in with
+``non_blocking=True`` on the current stream, where the kernels then run.
+Nothing synchronises until delivery, which waits on one CUDA event per
+chunk.  ``produce_stream`` stages the next chunk (read, page build, pin) on a
+thread while the current chunk's copies and kernels run.
+
+Pinned buffers come from PyTorch's caching host allocator, which records an
+event on the stream of each non-blocking copy out of a block and does not
+hand the block out again before that event completes — so a staging buffer
+is never refilled under a copy still reading it.  Copies and kernels share
+one stream, so the caching device allocator never recycles a page tensor
+under a kernel that still reads it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.util import resolve_device
+from repro_torch.core.opgraph import (
+    LoweredPlan,
+    build_transform_graph,
+    lower,
+    resolve_placements,
+)
+from repro_torch.core.preprocess import (
+    MiniBatch,
+    execute_plan,
+    flatten_megabatch,
+    pages_from_partition,
+    stack_pages,
+)
+from repro_torch.core.spec import TransformSpec
+from repro_torch.data.storage import PartitionedStore
+
+# folded into cache_signature so a port engine never shares an identity with
+# a JAX engine of the same spec and placement
+BACKEND_TAG = "torch"
+
+HostPages = Dict[str, torch.Tensor]  # int32 views, pinned on CUDA engines
+
+
+class TorchPreStoEngine:
+    """Owns a TransformSpec and runs its lowered plan on one device."""
+
+    def __init__(
+        self,
+        spec: TransformSpec,
+        *,
+        placement="presto",
+        device: torch.device | str | None = None,
+    ):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.family_placements = resolve_placements(placement, spec)
+        self.lowered_plan: LoweredPlan = lower(
+            build_transform_graph(spec), spec, self.family_placements,
+            device=self.device,
+        )
+
+    def cache_signature(self) -> str:
+        """Stable identity of this engine's Transform: the lowered plan's
+        structural hash (equal to the JAX package's for the same spec and
+        placement), the per-family placements, and the backend tag."""
+        h = hashlib.sha256()
+        h.update(self.lowered_plan.structural_hash().encode())
+        h.update(json.dumps(sorted(self.family_placements.items())).encode())
+        h.update(BACKEND_TAG.encode())
+        return h.hexdigest()[:16]
+
+    # -- staging (host) -------------------------------------------------------
+    def stage_partition(self, store: PartitionedStore, pid: int) -> Dict[str, np.ndarray]:
+        """Extract(Read): fetch + lay out one partition's pages (numpy)."""
+        return pages_from_partition(store.read(pid), self.spec)
+
+    def stage_megabatch(
+        self, store: PartitionedStore, pids: Sequence[int]
+    ) -> Dict[str, np.ndarray]:
+        """Extract(Read) K partitions and stack their pages leading-axis;
+        each read charges its own partition's bytes."""
+        return stack_pages(self.stage_partition(store, pid) for pid in pids)
+
+    def pin_pages(self, pages: Dict[str, np.ndarray]) -> HostPages:
+        """Numpy uint32 pages -> int32 tensors, pinned for async copy when the
+        engine runs on CUDA (views of the numpy arrays on the CPU)."""
+        out = {}
+        for k, v in pages.items():
+            t = torch.from_numpy(np.ascontiguousarray(v).view(np.int32))
+            out[k] = t.pin_memory() if self.device.type == "cuda" else t
+        return out
+
+    def put_pages(self, pages: HostPages) -> Dict[str, torch.Tensor]:
+        """Host page tensors -> the engine's device, without blocking."""
+        if self.device.type == "cpu":
+            return pages
+        return {k: v.to(self.device, non_blocking=True) for k, v in pages.items()}
+
+    # -- Transform (device) -----------------------------------------------------
+    def preprocess_megabatch(self, stacked: Dict[str, torch.Tensor]) -> Tuple[MiniBatch, ...]:
+        """Transform a leading-axis megabatch of K partitions in ONE launch
+        per kernel, then split back into K per-partition mini-batches,
+        bitwise identical to K solo runs (every stage is row-local)."""
+        k = int(stacked["label_words"].shape[0])
+        if k > 1 and not self.lowered_plan.megabatch_safe():
+            raise ValueError(
+                "lowered plan has a non-row-local stage; a megabatch would not "
+                "be bitwise identical to solo runs"
+            )
+        mb = execute_plan(self.lowered_plan, flatten_megabatch(stacked))
+        if k == 1:
+            return (mb,)
+        rows = mb["labels"].shape[0] // k
+        split = {key: torch.split(v, rows, dim=0) for key, v in mb.items()}
+        return tuple({key: split[key][i] for key in mb} for i in range(k))
+
+    def _launch(self, pinned: HostPages) -> Tuple[Tuple[MiniBatch, ...], Optional[torch.cuda.Event]]:
+        """Copy one staged chunk in and queue its kernels; returns the
+        batches and the event that marks them done (None on the CPU)."""
+        batches = self.preprocess_megabatch(self.put_pages(pinned))
+        if self.device.type == "cpu":
+            return batches, None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return batches, done
+
+    @staticmethod
+    def _deliver(done: Optional[torch.cuda.Event]) -> None:
+        if done is not None:
+            done.synchronize()
+
+    # -- produce path -------------------------------------------------------------
+    def produce_batch(self, store: PartitionedStore, pid: int) -> MiniBatch:
+        """Extract + Transform one partition into a device-ready mini-batch."""
+        return self.produce_batches(store, [pid])[0]
+
+    def produce_batches(
+        self, store: PartitionedStore, pids: Sequence[int]
+    ) -> List[MiniBatch]:
+        """Extract + Transform K partitions with ONE megabatched launch per
+        kernel; bitwise identical to K ``produce_batch`` calls."""
+        batches, done = self._launch(self.pin_pages(self.stage_megabatch(store, pids)))
+        self._deliver(done)
+        return list(batches)
+
+    def produce_stream(
+        self,
+        store: PartitionedStore,
+        pids: Iterable[int],
+        *,
+        megabatch: int = 1,
+        overlap: bool = True,
+        lookahead: int = 1,
+    ) -> Iterator[Tuple[int, MiniBatch]]:
+        """The zero-stall produce loop: megabatched launches, double-buffered.
+
+        Yields ``(pid, mini-batch)`` in `pids` order.  Partitions are
+        grouped into megabatches of up to ``megabatch``; each group's kernels
+        run once.  With ``overlap`` the next ``lookahead`` groups are read,
+        page-built and pinned on a staging thread while the current group's
+        copies and kernels run, and the host waits on the group's event only
+        at delivery.  Batches are bitwise identical to serial
+        ``produce_batch`` calls either way."""
+        pids = list(pids)
+        k = max(1, int(megabatch))
+        chunks = [pids[i : i + k] for i in range(0, len(pids), k)]
+        if not chunks:
+            return
+        lookahead = max(1, int(lookahead))
+
+        def stage(chunk):
+            return self.pin_pages(self.stage_megabatch(store, chunk))
+
+        if not overlap:
+            for chunk in chunks:
+                batches, done = self._launch(stage(chunk))
+                self._deliver(done)
+                yield from zip(chunk, batches)
+            return
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="presto-stage") as stager:
+            pending: List = []  # staged-chunk futures, window of `lookahead`
+            nxt = 0
+
+            def top_up() -> None:
+                nonlocal nxt
+                while len(pending) < lookahead and nxt < len(chunks):
+                    pending.append(stager.submit(stage, chunks[nxt]))
+                    nxt += 1
+
+            top_up()
+            for chunk in chunks:
+                batches, done = self._launch(pending.pop(0).result())
+                top_up()  # refill behind the in-flight copies and kernels
+                self._deliver(done)  # block only at delivery
+                yield from zip(chunk, batches)

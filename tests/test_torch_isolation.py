@@ -1,0 +1,110 @@
+"""The port stands alone: it imports nothing of jax or of the JAX package,
+defaults to CUDA and raises without it, and its kernel bindings refuse CPU
+tensors instead of falling back to the plain versions."""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import opgraph
+from repro_torch.core.presto import TorchPreStoEngine
+from repro_torch.core.spec import TransformSpec
+from repro_torch.data.synth import RMDataConfig, SyntheticRecSysSource
+from repro_torch.kernels import fused, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def _small_spec():
+    cfg = RMDataConfig("t", 4, 3, 4, 8, 2, 32, 1 << 16, 1024, rows_per_partition=256)
+    return TransformSpec.from_source(SyntheticRecSysSource(cfg, rows=256))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    modules = sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+    )
+    assert "repro_torch.core.presto" in modules and "repro_torch.kernels.fused" in modules
+    script = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            imported.append(node.module or "")
+    assert any(m.startswith("repro_torch") for m in imported)
+    assert not [m for m in imported if _forbidden(m)]
+
+
+def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
+    """No CUDA device: non-zero exit and no result line, from the repository
+    and from a directory that holds chip_smoke.py and nothing else."""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = _small_spec()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchPreStoEngine(spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opgraph.lower_transform(spec)
+    assert TorchPreStoEngine(spec, device="cpu").device.type == "cpu"
+
+
+def test_kernel_bindings_refuse_cpu_tensors():
+    words = torch.zeros((2, 3, 4), dtype=torch.int32)
+    params = ops.hash_params([1, 2], [10, 10], torch.device("cpu"))
+    bounds = torch.zeros((2, 128), dtype=torch.float32)
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.fused_dense(words)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.fused_sparse(torch.zeros((2, 3, 7), dtype=torch.int32), params, width=7)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.fused_gen(words, bounds, params)
+    assert fused.LAUNCHES == before
+
+
+def test_ops_send_cpu_tensors_to_the_plain_versions():
+    w = np.random.default_rng(0).integers(0, 2**32, (2, 3, 4), dtype=np.uint32)
+    before = dict(fused.LAUNCHES)
+    out = ops.fused_dense(w)
+    assert out.device.type == "cpu" and out.shape == (2, 12)
+    assert fused.LAUNCHES == before
