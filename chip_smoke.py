@@ -6,16 +6,27 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card (adversarial
-words at the test shapes and at the rm2 and rm5 shapes, plus the pinned NaN
-and +inf edge cases), then drives the port's main path at full RM2 width —
-``TorchPreStoEngine.produce_stream`` over an 8-partition ``PartitionedStore``,
-once at megabatch 1 and once at megabatch 2 — and holds every delivered
-batch against the port's plain path (the same engine on the CPU).  It prints
-per-kernel times beside their bounds, the main path's time split, one JSON
-line describing the kernels, the card's name and power limit, and, as its
-last line, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before that line.  Without a CUDA device it exits 1 at once.
+holds each of the eight kernels against its plain PyTorch version on the
+card (adversarial words at the test shapes and at the rm2 and rm5 shapes,
+unaligned views, plus the pinned NaN, +inf and subnormal edge cases), then
+drives three paths at full RM2 width over one 8-partition
+``PartitionedStore``, each with the launch counters set to 0 just before it
+and read just after:
+
+* ``presto`` (the fused kernels): ``produce_stream`` over pids 0-3 at
+  megabatch 1 and 4-7 at megabatch 2, every batch held against the port's
+  plain path (the same engine on the CPU);
+* ``disagg`` with ``kernel_mode="unfused"`` (the five standalone kernels):
+  pids 0-3 at megabatch 1;
+* ``hybrid`` (the cost model's placement): pids 4-7 at megabatch 2;
+
+and holds every unfused and hybrid batch bitwise against the fused batch of
+the same pid, dense included.  It prints the unfused plan's per-stage
+latency breakdown (the paper's Fig. 5/12), per-kernel times beside their
+bounds, the presto path's time split, one JSON line describing the kernels,
+the card's name and power limit, and, as its last line,
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
+line.  Without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -36,12 +47,40 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
 DENSE_TOL = dict(rtol=1e-6, atol=1e-6, equal_nan=True)  # log1p: 1 ulp
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {
+    "fused_dense": CSRC + "fused.cu",
+    "fused_sparse": CSRC + "fused.cu",
+    "fused_gen": CSRC + "fused.cu",
+    "bitunpack": CSRC + "decode.cu",
+    "bytesplit": CSRC + "decode.cu",
+    "sigridhash": CSRC + "sigridhash.cu",
+    "bucketize": CSRC + "bucketize.cu",
+    "lognorm": CSRC + "lognorm.cu",
+}
 REPLACES = {
     "fused_dense": "src/repro/kernels/fused.py:32",
     "fused_sparse": "src/repro/kernels/fused.py:106",
     "fused_gen": "src/repro/kernels/fused.py:81",
+    "bitunpack": "src/repro/kernels/decode.py:49",
+    "bytesplit": "src/repro/kernels/decode.py:84",
+    "sigridhash": "src/repro/kernels/sigridhash.py:43",
+    "bucketize": "src/repro/kernels/bucketize.py:52",
+    "lognorm": "src/repro/kernels/lognorm.py:25",
 }
+# the kernel each lowered stage kind launches (the lengths decode runs B4)
+STAGE_KERNELS = {
+    "fused:decode.bytesplit+lognorm": "fused_dense",
+    "fused:decode.bitpack+sigridhash": "fused_sparse",
+    "fused:decode.bytesplit+bucketize+sigridhash": "fused_gen",
+    "decode.bitpack": "bitunpack",
+    "decode.lengths": "bitunpack",
+    "decode.bytesplit": "bytesplit",
+    "sigridhash": "sigridhash",
+    "bucketize": "bucketize",
+    "lognorm": "lognorm",
+}
+TRANSFORM_KINDS = ("bucketize", "sigridhash", "lognorm")
 TEST_WIDTHS = (1, 6, 7, 17, 24, 31, 32)
 # kernel-vs-plain cases: the test shapes (G not a multiple of 128), then the
 # rm2 page shapes and, for fused_gen, rm5's 4096 boundaries
@@ -49,6 +88,16 @@ DENSE_CASES = ((3, 1), (3, 130), (504, 2048))  # (F, G)
 SPARSE_CASES = ((3, 1, TEST_WIDTHS), (3, 130, TEST_WIDTHS), (42, 8192, (24,)))
 GEN_CASES = ((3, 1, 32), (3, 130, 32), (3, 1, 600), (3, 130, 600),
              (21, 2048, 1024), (42, 2048, 4096))  # (F, G, m)
+# the standalone kernels: test shapes, then the rm2 shapes of the unfused
+# plan (decode_sparse, decode_lengths; decode_dense, decode_gen; hash_sparse,
+# hash_gen; bucketize_gen, and rm5's 4096 boundaries; lognorm_dense)
+BITUNPACK_CASES = ((3, 1, TEST_WIDTHS), (3, 130, TEST_WIDTHS), (42, 8192, (24,)),
+                   (42, 256, (6,)))
+BYTESPLIT_CASES = ((3, 1), (3, 130), (504, 2048), (21, 2048))  # (F, G)
+HASH_CASES = ((3, 1), (3, 1500), (3, 1027), (42, 262144), (21, 8192))  # (F, N)
+BUCKETIZE_CASES = ((3, 5, 32), (3, 1500, 32), (3, 5, 600), (3, 1500, 600),
+                   (21, 8192, 1024), (42, 8192, 4096))  # (F, R, m)
+LOGNORM_CASES = ((3, 5, 7), (1027,), (504, 8192))
 MAIN_CONFIG, MAIN_ROWS = "rm2", None  # full width, 8192 rows per partition
 
 
@@ -170,6 +219,124 @@ def phase_kernels(rng, dev, errs: dict) -> None:
           f"(integers bitwise, dense rtol=atol=1e-6 with NaN equal)")
 
 
+def hold_bits(name: str, out: torch.Tensor, want: torch.Tensor, errs: dict) -> None:
+    """A decode against its plain version bit for bit, through int32 views
+    (``torch.equal`` on floats fails on NaN; a tolerance would hide a
+    changed payload)."""
+    torch.cuda.synchronize()
+    check(out.shape == want.shape and out.dtype == want.dtype, f"{name}: shape/dtype")
+    check(torch.equal(out.view(torch.int32), want.view(torch.int32)),
+          f"{name}: bits differ from the plain version")
+    errs.setdefault(name, 0.0)
+
+
+def offset_view(rng, shape, device) -> torch.Tensor:
+    """Arbitrary words as a contiguous view 4 bytes past a 16-byte aligned
+    buffer start, so 16-byte vector accesses are not allowed."""
+    n = int(np.prod(shape))
+    v = words(rng, (n + 1,), device)[1:].view(shape)
+    check(v.data_ptr() % 16 == 4 and v.is_contiguous(), "offset view layout")
+    return v
+
+
+def phase_standalone_kernels(rng, dev, errs: dict) -> None:
+    """The five standalone kernels of the host lowering against their plain
+    versions, and the fused chains against their unfused compositions."""
+    from repro_torch.kernels import bucketize, decode, fused, lognorm, ops, ref, sigridhash
+
+    params = lambda f: ops.hash_params(  # noqa: E731
+        rng.integers(0, 2**32, f, dtype=np.uint32),
+        rng.integers(1, 2**32, f, dtype=np.uint32), dev)
+    cases = 0
+    for f, g, widths in BITUNPACK_CASES:
+        for width in widths:
+            w = words(rng, (f, g, width), dev)
+            hold("bitunpack", decode.bitunpack(w, width=width),
+                 ref.bitunpack_grouped(w, width), errs)
+            cases += 1
+    for f, g in BYTESPLIT_CASES:
+        w = words(rng, (f, g, 4), dev)
+        hold_bits("bytesplit", decode.bytesplit(w), ref.bytesplit_decode_grouped(w), errs)
+        cases += 1
+    w = offset_view(rng, (3, 130, 4), dev)
+    hold_bits("bytesplit", decode.bytesplit(w), ref.bytesplit_decode_grouped(w), errs)
+    cases += 1
+    for f, n in HASH_CASES:
+        v, p = words(rng, (f, n), dev), params(f)
+        hold("sigridhash", sigridhash.sigridhash(v, p), ref.sigridhash_params(v, p), errs)
+        cases += 1
+    v, p = offset_view(rng, (3, 1500), dev), params(3)
+    hold("sigridhash", sigridhash.sigridhash(v, p), ref.sigridhash_params(v, p), errs)
+    cases += 1
+    for f, r, m in BUCKETIZE_CASES:
+        x = words(rng, (f, r), dev).view(torch.float32)
+        b = ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev)
+        hold("bucketize", bucketize.bucketize(x, b), ref.bucketize(x, b), errs)
+        cases += 1
+    x = offset_view(rng, (3, 1500), dev).view(torch.float32)
+    b = ops.pad_boundaries(sorted_bounds(rng, 3, 600, dev), dev)
+    hold("bucketize", bucketize.bucketize(x, b), ref.bucketize(x, b), errs)
+    cases += 1
+    for shape in LOGNORM_CASES:
+        x = words(rng, shape, dev).view(torch.float32)
+        hold("lognorm", lognorm.lognorm(x), ref.lognorm(x), errs)
+        cases += 1
+    x = offset_view(rng, (1027,), dev).view(torch.float32)
+    hold("lognorm", lognorm.lognorm(x), ref.lognorm(x), errs)
+    cases += 1
+
+    # C1 and C6 through the standalone Bucketize (padded to 128 by ops)
+    for vals, bounds, counts in (
+        ([np.nan, np.inf, -np.inf, 1.0], [0.5, 1.0, 2.0, 3.0], [0, 128, 0, 2]),
+        ([np.nan, np.inf, 0.0, 1e30], list(np.linspace(-1, 1, 1024)), [0, 1024, 512, 1024]),
+        ([-5e-40, 5e-40, 1e-45, -0.0], [-1e-39, 0.0, 1e-39, 1.0], [3, 3, 3, 3]),
+    ):
+        x = torch.tensor([vals], dtype=torch.float32, device=dev)
+        b = ops.pad_boundaries(np.asarray([bounds], np.float32), dev)
+        want = torch.tensor([counts], dtype=torch.int32, device=dev)
+        check(torch.equal(ref.bucketize(x, b), want), "plain C1/C6 counts")
+        hold("bucketize", bucketize.bucketize(x, b), want, errs)
+        cases += 1
+    # C5 through the standalone Log
+    x = torch.tensor([np.nan, -1.0, -np.inf, np.inf, 0.0], dtype=torch.float32, device=dev)
+    out = lognorm.lognorm(x).cpu()
+    check(bool(torch.isnan(out[0])), "lognorm lost the NaN")
+    check(out[1:].tolist() == [0.0, 0.0, float("inf"), 0.0], f"lognorm edge values {out}")
+    hold("lognorm", lognorm.lognorm(x), ref.lognorm(x), errs)
+    cases += 1
+
+    # fused chains equal their unfused compositions of kernels, bit for bit
+    w = words(rng, (504, 2048, 4), dev)
+    torch.testing.assert_close(fused.fused_dense(w), lognorm.lognorm(decode.bytesplit(w)),
+                               rtol=0, atol=0, equal_nan=True)
+    w, p = words(rng, (42, 2048, 24), dev), params(42)
+    check(torch.equal(fused.fused_sparse(w, p, width=24).reshape(42, -1),
+                      sigridhash.sigridhash(decode.bitunpack(w, width=24).reshape(42, -1), p)),
+          "fused_sparse differs from bitunpack -> sigridhash")
+    w, p = words(rng, (21, 2048, 4), dev), params(21)
+    b = ops.pad_boundaries(sorted_bounds(rng, 21, 1024, dev), dev)
+    x = decode.bytesplit(w).reshape(21, -1)
+    check(torch.equal(fused.fused_gen(w, b, p).reshape(21, -1),
+                      sigridhash.sigridhash(bucketize.bucketize(x, b), p)),
+          "fused_gen differs from bytesplit -> bucketize -> sigridhash")
+    torch.cuda.synchronize()
+    cases += 3
+    print(f"standalone kernels: {cases} cases, every kernel equals its plain version "
+          f"(integers bitwise, decodes bitwise through int32 views, lognorm rtol=atol=1e-6 "
+          f"with NaN equal); the 3 fused chains equal their unfused kernel chains bitwise")
+
+
+def check_launches(path: str, plan, launches: dict) -> None:
+    """Every kernel the plan's stages run was launched on this path, and no
+    other kernel was."""
+    want = {STAGE_KERNELS[st.kind] for st in plan.stages if st.kind in STAGE_KERNELS}
+    for name, n in launches.items():
+        if name in want:
+            check(n > 0, f"{path}: {name} was never launched")
+        else:
+            check(n == 0, f"{path}: {name} launched {n} times, but is not in the plan")
+
+
 def phase_main_path(dev):
     """rm2 at full width through TorchPreStoEngine.produce_stream."""
     from repro_torch.core.presto import TorchPreStoEngine
@@ -191,9 +358,8 @@ def phase_main_path(dev):
     second = list(engine.produce_stream(store, range(4, 8), megabatch=2))
     t2 = time.perf_counter()
     launches = dict(fused.LAUNCHES)
-    print(f"main path: {MAIN_CONFIG} rows={rows}, 8 partitions, launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+    print(f"main path (presto): {MAIN_CONFIG} rows={rows}, 8 partitions, launches {launches}")
+    check_launches("presto", engine.lowered_plan, launches)
     delivered = first + second
     check([pid for pid, _ in delivered] == list(range(8)), "pids out of order")
     print(f"main path: delivered {4 * rows / (t1 - t0):.1f} samples/s at megabatch 1, "
@@ -215,8 +381,77 @@ def phase_main_path(dev):
               "batch shapes")
     print("main path: 8 batches equal the plain path (integers and labels bitwise, "
           "dense rtol=atol=1e-6)")
-    del first, second, delivered
-    return engine, store, launches
+    return engine, store, launches, dict(delivered)
+
+
+def phase_host_paths(spec, store, fused_batches: dict) -> dict:
+    """The unfused (Disagg) and hybrid lowerings at rm2 over the same store,
+    each batch held bitwise against the fused batch of its pid."""
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.kernels import fused
+
+    paths = (
+        ("unfused", dict(placement="disagg", kernel_mode="unfused"), range(4), 1),
+        ("hybrid", dict(placement="hybrid"), range(4, 8), 2),
+    )
+    engines, by_path = {}, {}
+    for name, kwargs, pids, k in paths:
+        engine = TorchPreStoEngine(spec, **kwargs)
+        engines[name] = engine
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        out = list(engine.produce_stream(store, pids, megabatch=k))
+        dt = time.perf_counter() - t0
+        by_path[name] = dict(fused.LAUNCHES)
+        check_launches(name, engine.lowered_plan, by_path[name])
+        check([pid for pid, _ in out] == list(pids), f"{name}: pids out of order")
+        for pid, mb in out:
+            want = fused_batches[pid]
+            check(set(mb) == set(want), f"{name}: batch keys")
+            for key, v in want.items():
+                if key == "dense":
+                    torch.testing.assert_close(mb[key], v, rtol=0, atol=0, equal_nan=True,
+                                               msg=lambda m: f"{name} pid {pid} dense: {m}")
+                else:
+                    check(torch.equal(mb[key], v), f"{name} pid {pid} {key} differs from fused")
+        print(f"path {name}: {kwargs}, host families {engine.host_families()}, stages "
+              f"{[st.name for st in engine.lowered_plan.stages]}")
+        print(f"path {name}: pids {list(pids)} at megabatch {k}, launches {by_path[name]}, "
+              f"{len(out) * store.source.rows / dt:.1f} samples/s (wall clock); "
+              f"{len(out)} batches bitwise equal to the fused path's, dense included")
+    del out
+    return engines, by_path
+
+
+def phase_breakdown(engines: dict, store) -> None:
+    """The paper's per-stage latency breakdown (Fig. 5/12) at rm2 on the
+    card: ``time_stages`` of the unfused plan (best of 5, synchronised
+    around each stage), the Transform kinds' share, and the three plans'
+    totals."""
+    from repro_torch.core.opgraph import group_times_by_placement, time_stages
+
+    unfused = engines["unfused"]
+    pages = unfused.put_pages(unfused.pin_pages(unfused.stage_partition(store, 0)))
+    totals = {}
+    for name in ("unfused", "presto", "hybrid"):
+        plan = engines[name].lowered_plan
+        times = time_stages(plan, pages, iters=5, warmup=2)
+        totals[name] = sum(times.values())
+        if name == "unfused":
+            total = totals[name]
+            for st in plan.stages:
+                print(f"breakdown unfused rm2: {st.name:15s} {st.kind:18s} "
+                      f"{times[st.name] * 1e3:8.4f} ms  {times[st.name] / total:6.1%}")
+            kinds = sum(times[st.name] for st in plan.stages if st.kind in TRANSFORM_KINDS)
+            print(f"breakdown unfused rm2: Transform kinds {TRANSFORM_KINDS} "
+                  f"{kinds * 1e3:.4f} ms = {kinds / total:.1%} of {total * 1e3:.4f} ms")
+        groups = group_times_by_placement(plan, times)
+        print(f"breakdown {name} rm2: total {totals[name] * 1e3:.4f} ms over "
+              f"{len(plan.stages)} stages; by placement "
+              + ", ".join(f"{g} {t * 1e3:.4f} ms" for g, t in sorted(groups.items())))
+    print(f"breakdown rm2: unfused/fused = {totals['unfused'] / totals['presto']:.2f}x, "
+          f"hybrid/fused = {totals['hybrid'] / totals['presto']:.2f}x (stage wall times, "
+          f"best of 5, one partition)")
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -234,11 +469,13 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in marks)
 
 
-def phase_timings(engine, store, dev, errs: dict, launches_by_kernel: dict):
-    """Kernel times at the main path's rm2 inputs, and the path's split."""
+def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
+    """Kernel times at the paths' rm2 inputs, the presto path's split, and
+    each path's device time by kernel."""
     from repro_torch.core.opgraph import prepare_env
-    from repro_torch.kernels import fused, ops, ref
+    from repro_torch.kernels import bucketize, decode, fused, lognorm, ops, ref, sigridhash
 
+    engine = engines["presto"]
     spec, cfg = engine.spec, engine.spec.cfg
     pages = engine.put_pages(engine.pin_pages(engine.stage_partition(store, 0)))
     env = prepare_env(pages, engine.lowered_plan.gen_index)
@@ -249,12 +486,22 @@ def phase_timings(engine, store, dev, errs: dict, launches_by_kernel: dict):
     width, m = cfg.id_width, bounds.shape[1]
     decoded_dense = ref.bytesplit_decode_grouped(dense_w)
     decoded_gen = ref.bytesplit_decode_grouped(gen_w).reshape(gen_w.shape[0], -1)
+    # the unfused plan's intermediates: decoded dense (504, 8192), raw
+    # sparse ids (42, 262144)
+    x_dense = decoded_dense.reshape(dense_w.shape[0], -1)
+    sparse_raw = ref.bitunpack_grouped(sparse_w, width).reshape(sparse_w.shape[0], -1)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > L2
 
     def nvals(t, per_group):
         return t.shape[0] * t.shape[1] * per_group
 
+    def lib_bytesplit():
+        f, g, _ = dense_w.shape
+        return (dense_w.view(torch.uint8).reshape(f, g, 4, 4).transpose(-1, -2)
+                .contiguous().view(torch.float32).reshape(f, g, 4))
+
     search_steps = int(np.ceil(np.log2(m + 1)))
+    searchsorted = "torch.searchsorted(bounds, x, right=True) on decoded floats"
     rows_spec = {
         "fused_dense": dict(
             run=lambda: fused.fused_dense(dense_w), plain=lambda: ref.fused_dense(dense_w),
@@ -264,35 +511,72 @@ def phase_timings(engine, store, dev, errs: dict, launches_by_kernel: dict):
         "fused_sparse": dict(
             run=lambda: fused.fused_sparse(sparse_w, sp, width=width),
             plain=lambda: ref.fused_sparse(sparse_w, sp, width=width),
-            yard=None, yard_name="the plain ref function (no library call decodes bitpack)",
+            yard=None, yard_name="none (no library call decodes bitpack)",
             nbytes=sparse_w.numel() * 4 + sp.numel() * 4 + nvals(sparse_w, 32) * 4,
             ops=nvals(sparse_w, 32) * 16),
         "fused_gen": dict(
             run=lambda: fused.fused_gen(gen_w, bounds, gp),
             plain=lambda: ref.fused_gen(gen_w, bounds, gp),
             yard=lambda: torch.searchsorted(bounds, decoded_gen, right=True),
-            yard_name="torch.searchsorted(bounds, x, right=True) on decoded floats",
+            yard_name=searchsorted,
             nbytes=gen_w.numel() * 4 * 2 + bounds.numel() * 4 + gp.numel() * 4,
             ops=nvals(gen_w, 4) * (16 + 3 * search_steps)),
+        "bitunpack": dict(
+            run=lambda: decode.bitunpack(sparse_w, width=width),
+            plain=lambda: ref.bitunpack_grouped(sparse_w, width),
+            yard=None, yard_name="none (no library call decodes bitpack)",
+            nbytes=sparse_w.numel() * 4 + nvals(sparse_w, 32) * 4,
+            ops=nvals(sparse_w, 32) * 4),
+        "bytesplit": dict(
+            run=lambda: decode.bytesplit(dense_w),
+            plain=lambda: ref.bytesplit_decode_grouped(dense_w), bits=True,
+            library=lib_bytesplit,
+            nbytes=dense_w.numel() * 4 * 2, ops=nvals(dense_w, 4) * 3),
+        "sigridhash": dict(
+            run=lambda: sigridhash.sigridhash(sparse_raw, sp),
+            plain=lambda: ref.sigridhash_params(sparse_raw, sp),
+            yard=None, yard_name="none (no library call hashes)",
+            nbytes=sparse_raw.numel() * 4 * 2 + sp.numel() * 4,
+            ops=sparse_raw.numel() * 12),
+        "bucketize": dict(
+            run=lambda: bucketize.bucketize(decoded_gen, bounds),
+            plain=lambda: ref.bucketize(decoded_gen, bounds),
+            yard=lambda: torch.searchsorted(bounds, decoded_gen, right=True),
+            yard_name=searchsorted,
+            nbytes=decoded_gen.numel() * 4 * 2 + bounds.numel() * 4,
+            ops=decoded_gen.numel() * (2 + 3 * search_steps)),
+        "lognorm": dict(
+            run=lambda: lognorm.lognorm(x_dense), plain=lambda: ref.lognorm(x_dense),
+            library=lambda: torch.log1p(torch.clamp_min(x_dense, 0)),
+            nbytes=x_dense.numel() * 4 * 2, ops=x_dense.numel() * 20),
     }
     out = []
     for name, r in rows_spec.items():
-        hold(name, r["run"](), r["plain"](), errs)
+        got = r["run"]()
+        (hold_bits if r.get("bits") else hold)(name, got, r["plain"](), errs)
+        library = r.get("library")
+        if library is not None:  # the same function: it must agree
+            (hold_bits if r.get("bits") else hold)(f"{name} library", library(), got, {})
         ms = time_ms(r["run"], 50, flush)
         plain_ms = time_ms(r["plain"], 5, flush)
-        yard_ms = time_ms(r["yard"], 20, flush) if r["yard"] else None
+        library_ms = time_ms(library, 20, flush) if library is not None else None
+        yard_ms = time_ms(r["yard"], 20, flush) if r.get("yard") else None
         bytes_ms = r["nbytes"] / PEAK_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / PEAK_OPS_PER_S * 1e3
         bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-        print(f"kernel {name} rm2: {ms:.4f} ms, {r['nbytes']} bytes, bound {bound_ms:.4f} ms "
-              f"({bound_by}), plain {plain_ms:.4f} ms, yardstick "
-              f"{'n/a' if yard_ms is None else f'{yard_ms:.4f} ms'} [{r['yard_name']}]")
+        launches = {path: counts[name] for path, counts in by_path.items()}
+        print(f"kernel {name} rm2 {tuple(got.shape)}: {ms:.4f} ms, {r['nbytes']} bytes, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, library "
+              f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, yardstick "
+              f"{'n/a' if yard_ms is None else f'{yard_ms:.4f} ms'} "
+              f"[{r.get('yard_name', 'none')}], launches {launches}")
         out.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches_by_kernel[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "yardstick": r["yard_name"], "yardstick_ms": yard_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "yardstick": r.get("yard_name"), "yardstick_ms": yard_ms,
         })
 
     # main path split per partition (megabatch 1): host staging, copy in,
@@ -319,13 +603,14 @@ def phase_timings(engine, store, dev, errs: dict, launches_by_kernel: dict):
     serial = list(engine.produce_stream(store, range(4), overlap=False))
     print(f"main path: {len(serial) * store.source.rows / (time.perf_counter() - t0):.1f} "
           f"samples/s at megabatch 1 with overlap off (serial), wall clock")
-    profile_transform(engine, dev_pages)
+    for name, e in engines.items():
+        profile_transform(name, e, dev_pages)
     return out
 
 
-def profile_transform(engine, dev_pages) -> None:
+def profile_transform(path: str, engine, dev_pages) -> None:
     """Device time of one partition's Transform by kernel, from the profiler:
-    the fused kernels against the PyTorch glue.  Only rows that are device
+    the port's kernels against the PyTorch glue.  Only rows that are device
     activity are summed (the op that launched a kernel reports its time too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -338,15 +623,17 @@ def profile_transform(engine, dev_pages) -> None:
     rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     if not rows:
-        print("profile: the profiler saw no device time (not measured)")
+        print(f"profile {path}: the profiler saw no device time (not measured)")
         return
     total_us = sum(t for _, _, t in rows)
-    fused_us = sum(t for k, _, t in rows if "fused_" in k and "_kernel" in k)
-    print(f"profile: one rm2 partition's Transform is {sum(c for _, c, _ in rows)} device "
-          f"activities, {total_us:.1f} us busy; the 3 fused kernels {fused_us:.1f} us, "
-          f"PyTorch glue {total_us - fused_us:.1f} us")
+    ours = [(k, c, t) for k, c, t in rows if any(f"{n}_kernel" in k for n in SOURCES)]
+    ours_us = sum(t for _, _, t in ours)
+    print(f"profile {path}: one rm2 partition's Transform is {sum(c for _, c, _ in rows)} "
+          f"device activities, {total_us:.1f} us busy; the port's kernels "
+          f"({sum(c for _, c, _ in ours)} launches) {ours_us:.1f} us, PyTorch glue "
+          f"{total_us - ours_us:.1f} us")
     for key, count, t in sorted(rows, key=lambda r: -r[2])[:10]:
-        print(f"profile:   {t:9.1f} us  x{count}  {key[:90]}")
+        print(f"profile {path}:   {t:9.1f} us  x{count}  {key[:90]}")
 
 
 def main() -> int:
@@ -363,9 +650,21 @@ def main() -> int:
     phase_build()
     phase_kernels(rng, dev, errs)
     torch.cuda.synchronize()
-    engine, store, launches = phase_main_path(dev)
+    phase_standalone_kernels(rng, dev, errs)
     torch.cuda.synchronize()
-    kernels = phase_timings(engine, store, dev, errs, launches)
+    engine, store, launches, fused_batches = phase_main_path(dev)
+    torch.cuda.synchronize()
+    engines, by_path = phase_host_paths(engine.spec, store, fused_batches)
+    del fused_batches
+    by_path = {"presto": launches, **by_path}
+    for name in launches:
+        check(sum(p[name] for p in by_path.values()) > 0, f"{name} was never launched")
+    print(f"launches: all {len(launches)} kernels launched on the paths "
+          f"({ {n: sum(p[n] for p in by_path.values()) for n in launches} })")
+    engines["presto"] = engine
+    phase_breakdown(engines, store)
+    torch.cuda.synchronize()
+    kernels = phase_timings(engines, store, dev, errs, by_path)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -16,17 +16,26 @@ own decode->transform chain:
         bound by ``prepare_env`` so the family is independent of `dense`.
 
 A *placement* assigns each family to ``"isp"`` (the in-storage unit) or
-``"host"``.  ``lower`` turns graph + placement into an ordered stage list;
-an ISP-placed chain whose kind tuple appears in
-``repro_torch.kernels.FUSED_KERNELS`` lowers to ONE fused CUDA kernel.  This
-slice lowers the all-ISP placement only: the host lowering, with its
-standalone kernels, is a later slice.  The lowered stages (names, kinds,
-wiring) are the JAX package's, so a plan's ``structural_hash`` equals the
-reference's for the same spec and placement.
+``"host"`` (a CPU-style preprocessing server).  ``lower`` turns graph +
+placement into an ordered stage list:
+
+* an ISP-placed chain whose kind tuple appears in
+  ``repro_torch.kernels.FUSED_KERNELS`` lowers to ONE fused CUDA kernel —
+  one read of encoded bytes, one write of tensors (the PreSto pipeline);
+* a host-placed chain lowers to one stage per operator, each a standalone
+  CUDA kernel from ``repro_torch.kernels.OP_KERNELS`` (the Disagg-style
+  multi-pass baseline, also what the per-stage latency breakdown times).
+
+On one device both run on the card: the placement decides the lowering,
+not where the bytes go (this package has no meshed hops for host
+families).  The lowered stages (names, kinds, wiring) are the JAX
+package's, so a plan's ``structural_hash`` equals the reference's for the
+same spec and placement.  The spec's seeds, table sizes and padded
+boundaries go to the device once, at lowering.
 
 The glue outside the kernels stays plain PyTorch on the device, as the JAX
 package keeps it outside any Pallas kernel: the ``gen_words`` gather, the
-lengths decode, the labels bitcast and the ``form_batch`` transposes.
+labels bitcast and the ``form_batch`` transposes.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import time
 from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
@@ -41,9 +51,8 @@ import torch
 
 from repro_torch.common.util import resolve_device
 from repro_torch.core.spec import TransformSpec
-from repro_torch.kernels import FUSED_KERNELS, ROW_LOCAL_KINDS
+from repro_torch.kernels import FUSED_KERNELS, OP_KERNELS, ROW_LOCAL_KINDS
 from repro_torch.kernels import ops as K
-from repro_torch.kernels import ref as R
 
 ISP = "isp"
 HOST = "host"
@@ -214,12 +223,13 @@ def prepare_env(pages: Dict[str, torch.Tensor], gen_index: torch.Tensor) -> Dict
 # Placement resolution
 
 
-def resolve_placements(mode, spec: TransformSpec) -> Dict[str, str]:
+def resolve_placements(mode, spec: TransformSpec, rows: int | None = None) -> Dict[str, str]:
     """mode -> {family: "isp"|"host"}.
 
-    str modes: "fused"/"presto"/"isp" (all ISP) or "unfused"/"disagg"/"host"
-    (all host).  A dict is taken verbatim (validated).  "hybrid" needs the
-    cost model, which a later slice brings."""
+    str modes: "fused"/"presto"/"isp" (all ISP), "unfused"/"disagg"/"host"
+    (all host), or "hybrid" (per-family choice by the cost model for
+    partitions of `rows`, default the spec's).  A dict is taken verbatim
+    (validated)."""
     if isinstance(mode, dict):
         unknown = set(mode) - set(FAMILIES)
         if unknown:
@@ -235,7 +245,9 @@ def resolve_placements(mode, spec: TransformSpec) -> Dict[str, str]:
     if mode in ("unfused", "disagg", HOST):
         return {f: HOST for f in FAMILIES}
     if mode == "hybrid":
-        raise NotImplementedError("hybrid placement (cost model): later slice")
+        from repro_torch.core.costmodel import choose_placement  # lazy: avoids cycle
+
+        return choose_placement(spec, rows)
     raise ValueError(f"unknown mode/placement {mode!r}")
 
 
@@ -352,6 +364,15 @@ class LoweredPlan:
     def execute(self, pages: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return self.execute_env(prepare_env(pages, self.gen_index))
 
+    def stage(self, name: str) -> Stage:
+        for st in self.stages:
+            if st.name == name:
+                return st
+        raise KeyError(name)
+
+    def host_families(self) -> Tuple[str, ...]:
+        return tuple(f for f in FAMILIES if self.placements.get(f) == HOST)
+
     def megabatch_safe(self) -> bool:
         """True iff every lowered stage is row-local (``kernels.
         ROW_LOCAL_KINDS``), i.e. stacking K partitions along the row axis
@@ -359,18 +380,52 @@ class LoweredPlan:
         return all(st.kind in ROW_LOCAL_KINDS for st in self.stages)
 
 
-def _op_fn(node: OpNode, spec: TransformSpec) -> Callable[..., tuple]:
-    """One ISP operator outside the fused chains: plain PyTorch glue."""
-    if isinstance(node, Decode) and node.encoding == "lengths":
-        width = node.width
+def _device_boundaries(spec: TransformSpec, device: torch.device) -> torch.Tensor:
+    """The spec's bucket boundaries, checked, +inf padded and on `device`."""
+    b = np.asarray(spec.bucket_boundaries, np.float32)
+    if np.isnan(b).any() or (np.diff(b, axis=-1) < 0).any():
+        raise ValueError("bucket boundaries must be sorted and NaN-free")
+    return K.pad_boundaries(b, device)
 
-        def decode_lengths(w):
-            lens = R.bitunpack_grouped(w, width)  # (S, G, 32)
-            return (lens.reshape(lens.shape[0], -1).t(),)
 
-        return decode_lengths
-    if isinstance(node, Decode) and node.encoding == "labels":
-        return lambda w: (w.view(torch.float32),)
+def _hash_bank(spec: TransformSpec, table: str, device: torch.device):
+    """The (seeds, table sizes) bank of SigridHash `table` on `device`."""
+    seeds, maxv = (
+        (spec.sparse_seeds, spec.sparse_max)
+        if table == "sparse"
+        else (spec.gen_seeds, spec.gen_max)
+    )
+    return K.u32_tensor(seeds, device), K.u32_tensor(maxv, device)
+
+
+def _op_fn(node: OpNode, spec: TransformSpec, device: torch.device) -> Callable[..., tuple]:
+    """Standalone pass for one operator, its spec params already on
+    `device`.  Decodes, Bucketize, SigridHash and LogNorm run their
+    ``OP_KERNELS`` entry; the lengths decode runs the bitpack decode (B4) at
+    the lengths' width; labels and ``form_batch`` are plain glue."""
+    if isinstance(node, Decode):
+        if node.encoding == "bytesplit":
+            kernel = OP_KERNELS[node.kind]
+            return lambda w: (kernel(w),)
+        if node.encoding in ("bitpack", "lengths"):
+            decode, width = OP_KERNELS["decode.bitpack"], node.width
+            if node.encoding == "bitpack":
+                return lambda w: (decode(w, width=width),)
+            # (S, G, lw) words -> (rows, S) lengths
+            return lambda w: (decode(w, width=width).t(),)
+        if node.encoding == "labels":
+            return lambda w: (w.view(torch.float32),)
+        raise ValueError(f"unknown decode encoding {node.encoding}")
+    if isinstance(node, Bucketize):
+        kernel, bounds = OP_KERNELS[node.kind], _device_boundaries(spec, device)
+        return lambda v: (kernel(v, bounds),)
+    if isinstance(node, SigridHash):
+        kernel = OP_KERNELS[node.kind]
+        seeds, maxv = _hash_bank(spec, node.table, device)
+        return lambda v: (kernel(v, seeds, maxv),)
+    if isinstance(node, LogNorm):
+        kernel = OP_KERNELS[node.kind]
+        return lambda v: (kernel(v),)
     if isinstance(node, FormBatch):
         cfg = spec.cfg
 
@@ -388,7 +443,7 @@ def _op_fn(node: OpNode, spec: TransformSpec) -> Callable[..., tuple]:
             },)
 
         return form_batch
-    raise NotImplementedError(f"standalone {node.kind} pass: host lowering, later slice")
+    raise TypeError(f"unknown node type {type(node).__name__}")
 
 
 def _fused_fn(kinds: Tuple[str, ...], family: str, spec: TransformSpec,
@@ -396,21 +451,15 @@ def _fused_fn(kinds: Tuple[str, ...], family: str, spec: TransformSpec,
     """Bind one fused kernel to the spec params its chain needs, moved to
     `device` once here so no launch copies them again."""
     kernel = FUSED_KERNELS[kinds]
-    cfg = spec.cfg
     if family == "dense":
         return lambda w: (kernel(w),)
     if family == "sparse":
-        seeds = K.u32_tensor(spec.sparse_seeds, device)
-        maxv = K.u32_tensor(spec.sparse_max, device)
-        width = cfg.id_width
+        seeds, maxv = _hash_bank(spec, "sparse", device)
+        width = spec.cfg.id_width
         return lambda w: (kernel(w, seeds, maxv, width=width),)
     if family == "gen":
-        b = np.asarray(spec.bucket_boundaries, np.float32)
-        if np.isnan(b).any() or (np.diff(b, axis=-1) < 0).any():
-            raise ValueError("bucket boundaries must be sorted and NaN-free")
-        bounds = K.pad_boundaries(b, device)
-        seeds = K.u32_tensor(spec.gen_seeds, device)
-        maxv = K.u32_tensor(spec.gen_max, device)
+        bounds = _device_boundaries(spec, device)
+        seeds, maxv = _hash_bank(spec, "gen", device)
         return lambda w: (kernel(w, bounds, seeds, maxv),)
     raise ValueError(f"no fused binding for family {family}")
 
@@ -426,17 +475,15 @@ def lower(
     (CUDA unless the caller names another).
 
     ISP-placed chains whose kind tuple is registered in FUSED_KERNELS become
-    one fused-kernel stage; the other ISP families (lengths, labels) lower
-    to one plain stage per op.  Host-placed families raise: their lowering
-    runs the standalone kernels, which a later slice ports."""
+    one fused-kernel stage; everything else (host-placed chains, and the
+    lengths and labels families anywhere) lowers to one stage per op."""
     device = resolve_device(device)
-    if any(placements.get(f, ISP) == HOST for f in graph.families):
-        raise NotImplementedError("host lowering: later slice")
     stages: List[Stage] = []
     for family in graph.families:
         chain = graph.family_chain(family)
+        place = placements.get(family, ISP)
         kinds = tuple(n.kind for n in chain)
-        if kinds in FUSED_KERNELS:
+        if place == ISP and kinds in FUSED_KERNELS:
             stages.append(
                 Stage(
                     name=f"fused_{family}",
@@ -456,10 +503,10 @@ def lower(
                         name=n.name,
                         kind=n.kind,
                         family=family,
-                        placement=ISP,
+                        placement=place,
                         inputs=n.inputs,
                         outputs=(n.output,),
-                        fn=_op_fn(n, spec),
+                        fn=_op_fn(n, spec, device),
                         node_names=(n.name,),
                     )
                 )
@@ -472,7 +519,7 @@ def lower(
             placement="local",
             inputs=form.inputs,
             outputs=(form.output,),
-            fn=_op_fn(form, spec),
+            fn=_op_fn(form, spec, device),
             node_names=(form.name,),
         )
     )
@@ -488,3 +535,51 @@ def lower_transform(spec: TransformSpec, mode="fused", *,
     """Convenience: build + lower the standard Transform in one call."""
     return lower(build_transform_graph(spec), spec, resolve_placements(mode, spec),
                  device=device)
+
+
+# ---------------------------------------------------------------------------
+# Stage timing (latency breakdown + per-placement-group provisioning)
+
+
+def time_stages(
+    plan: LoweredPlan,
+    pages: Dict[str, torch.Tensor],
+    *,
+    iters: int = 3,
+    warmup: int = 1,
+) -> Dict[str, float]:
+    """Best-of-`iters` wall time per lowered stage, threading real values.
+
+    On CUDA the device is synchronised before and after every timed call,
+    so each time covers the stage's kernels and not only their enqueue."""
+    env = prepare_env(pages, plan.gen_index)
+    on_cuda = plan.device.type == "cuda"
+
+    def sync() -> None:
+        if on_cuda:
+            torch.cuda.synchronize(plan.device)
+
+    times: Dict[str, float] = {}
+    for st in plan.stages:
+        args = [env[k] for k in st.inputs]
+        out = None
+        for _ in range(max(warmup, 1)):
+            out = st.fn(*args)
+        best = float("inf")
+        for _ in range(max(iters, 1)):
+            sync()
+            t0 = time.perf_counter()
+            st.fn(*args)
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        times[st.name] = best
+        env.update(zip(st.outputs, out))
+    return times
+
+
+def group_times_by_placement(plan: LoweredPlan, times: Dict[str, float]) -> Dict[str, float]:
+    """Aggregate per-stage seconds into placement groups (isp/host/local)."""
+    groups: Dict[str, float] = {}
+    for st in plan.stages:
+        groups[st.placement] = groups.get(st.placement, 0.0) + times[st.name]
+    return groups

@@ -112,7 +112,9 @@ def preprocess_pages(
     pages: Dict[str, torch.Tensor], spec: TransformSpec, *, mode="fused"
 ) -> MiniBatch:
     """Full Transform for one partition's page tensors (int32 views of the
-    uint32 words), on the device they lie on.
+    uint32 words), on the device they lie on, lowered under `mode` (any
+    mode or dict ``opgraph.resolve_placements`` takes; every one gives the
+    same batch).
 
     Output:
       dense          (rows, n_dense) f32      — Log-normalized
@@ -139,4 +141,50 @@ def minibatch_shape_dtypes(spec: TransformSpec, rows: int) -> Dict[str, ShapeDty
         "lengths": ShapeDtype((rows, cfg.n_sparse), torch.int32),
         "one_hot_ids": ShapeDtype((rows, cfg.n_generated), torch.int32),
         "labels": ShapeDtype((rows,), torch.float32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Stage-split functions for the latency breakdown (Fig. 5 / Fig. 12)
+
+
+def stage_functions(spec: TransformSpec, *, device: torch.device | str | None = None):
+    """Plain callables per ETL stage, under the paper's stage names, for
+    stage timing on `device` (CUDA unless the caller names another).
+
+    Thin adapter over the all-host lowering: every body is a lowered graph
+    stage (no transform logic lives here), regrouped into the paper's
+    stages."""
+    plan = lower(
+        build_transform_graph(spec), spec, resolve_placements("unfused", spec),
+        device=device,
+    )
+    fns = {st.name: st.fn for st in plan.stages}
+    gen_index = plan.gen_index
+
+    def extract_decode(pages):
+        dense_raw = fns["decode_dense"](pages["dense_words"])[0]
+        sparse_raw = fns["decode_sparse"](pages["sparse_words"])[0]
+        return dense_raw, sparse_raw
+
+    def gen_bucketize(dense_raw):
+        return fns["bucketize_gen"](dense_raw.index_select(0, gen_index))[0]
+
+    def norm_sigridhash(sparse_raw, bucket_ids):
+        return fns["hash_sparse"](sparse_raw)[0], fns["hash_gen"](bucket_ids)[0]
+
+    def norm_log(dense_raw):
+        return fns["lognorm_dense"](dense_raw)[0]
+
+    def form_minibatch(pages, dense_norm, hashed, gen_hashed):
+        lengths = fns["decode_lengths"](pages["length_words"])[0]
+        labels = fns["decode_labels"](pages["label_words"])[0]
+        return fns["form_batch"](dense_norm, hashed, lengths, labels, gen_hashed)[0]
+
+    return {
+        "extract_decode": extract_decode,
+        "gen_bucketize": gen_bucketize,
+        "norm_sigridhash": norm_sigridhash,
+        "norm_log": norm_log,
+        "form_minibatch": form_minibatch,
     }

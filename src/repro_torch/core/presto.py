@@ -1,10 +1,16 @@
 """TorchPreStoEngine: the ISP worker's unit of work, on one CUDA device.
 
-The port of the local (mesh-less) half of ``repro.core.presto.PreStoEngine``
-in ``presto`` placement: every column family runs on the ISP unit, so a
-partition's encoded pages go to the device once and come back as a
-train-ready mini-batch, with the three fused CUDA kernels doing all of the
-Transform's work.  The meshed and host/hybrid paths are later slices.
+The port of the local (mesh-less) half of ``repro.core.presto.PreStoEngine``,
+under every placement the reference takes on one device: ``presto`` (every
+column family on the ISP unit, three fused CUDA kernels), ``disagg`` (every
+family on the host), ``hybrid`` (the cost model's per-family choice) or a
+per-family dict.  A partition's encoded pages go to the device once and come
+back as a train-ready mini-batch.  As in the reference, the placement says
+which families' traffic would hop to a host, and ``kernel_mode`` (or, by
+default, the placement) says how the Transform lowers: ``disagg`` alone
+keeps the fused kernels; ``kernel_mode="unfused"`` lowers the multi-pass
+plan of standalone kernels.  This package has no meshed hops: host
+families run on the engine's own device.
 
 Produce path: the host reads a partition and builds its numpy pages, copies
 them into pinned memory, and the device copies them in with
@@ -32,7 +38,11 @@ import numpy as np
 import torch
 
 from repro_torch.common.util import resolve_device
+from repro_torch.core.costmodel import DEFAULT_PLACEMENT_MODEL, partition_costs
 from repro_torch.core.opgraph import (
+    FAMILIES,
+    HOST,
+    ISP,
     LoweredPlan,
     build_transform_graph,
     lower,
@@ -52,6 +62,8 @@ from repro_torch.data.storage import PartitionedStore
 # a JAX engine of the same spec and placement
 BACKEND_TAG = "torch"
 
+PLACEMENTS = ("presto", "disagg", "hybrid")
+
 HostPages = Dict[str, torch.Tensor]  # int32 views, pinned on CUDA engines
 
 
@@ -63,25 +75,67 @@ class TorchPreStoEngine:
         spec: TransformSpec,
         *,
         placement="presto",
+        kernel_mode: Optional[str] = None,
+        family_placements: Optional[Dict[str, str]] = None,
         device: torch.device | str | None = None,
     ):
+        """`placement`: "presto", "disagg", "hybrid", or a per-family dict
+        (which means "hybrid" with those families' placements).  For
+        "hybrid", `family_placements` overrides the cost model.
+        `kernel_mode`: "fused"/"unfused" (or any mode ``resolve_placements``
+        takes) forces the kernel lowering whatever the placement; None
+        follows the placement, except that "disagg" keeps the fused
+        kernels, as the reference does."""
+        if isinstance(placement, dict):
+            family_placements, placement = dict(placement), "hybrid"
+        if placement not in PLACEMENTS:
+            raise ValueError(f"placement must be one of {PLACEMENTS} or a dict, got {placement!r}")
         self.spec = spec
         self.device = resolve_device(device)
-        self.family_placements = resolve_placements(placement, spec)
+        self.placement = placement
+        if placement == "hybrid":
+            self.family_placements = resolve_placements(
+                family_placements if family_placements is not None else "hybrid",
+                spec,
+            )
+        else:
+            uniform = ISP if placement == "presto" else HOST
+            self.family_placements = {f: uniform for f in FAMILIES}
+        self.kernel_mode = kernel_mode
+        if kernel_mode is not None:
+            kernel_placements = resolve_placements(kernel_mode, spec)
+        elif placement == "disagg":
+            # disagg moves the batch but still runs the fused kernels
+            kernel_placements = resolve_placements("fused", spec)
+        else:
+            kernel_placements = self.family_placements
         self.lowered_plan: LoweredPlan = lower(
-            build_transform_graph(spec), spec, self.family_placements,
-            device=self.device,
+            build_transform_graph(spec), spec, kernel_placements, device=self.device,
         )
+
+    def host_families(self) -> Tuple[str, ...]:
+        """Families whose traffic the placement sends to a host."""
+        return tuple(f for f in FAMILIES if self.family_placements[f] == HOST)
 
     def cache_signature(self) -> str:
         """Stable identity of this engine's Transform: the lowered plan's
-        structural hash (equal to the JAX package's for the same spec and
-        placement), the per-family placements, and the backend tag."""
+        structural hash (equal to the JAX package's for the same spec,
+        placement and kernel mode), the per-family placements, and the
+        backend tag."""
         h = hashlib.sha256()
         h.update(self.lowered_plan.structural_hash().encode())
         h.update(json.dumps(sorted(self.family_placements.items())).encode())
         h.update(BACKEND_TAG.encode())
         return h.hexdigest()[:16]
+
+    def route_costs(self, rows: Optional[int] = None, model=None):
+        """Whole-partition cost summary (``costmodel.PartitionCosts``) for
+        a claim router: modeled seconds on an idle ISP unit against the host
+        path, plus the ops and link bytes per produce.  Routing consumes
+        these; it never changes the produced bytes."""
+        return partition_costs(
+            self.spec, rows, model if model is not None else DEFAULT_PLACEMENT_MODEL
+        )
 
     # -- staging (host) -------------------------------------------------------
     def stage_partition(self, store: PartitionedStore, pid: int) -> Dict[str, np.ndarray]:

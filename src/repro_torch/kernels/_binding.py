@@ -1,0 +1,96 @@
+"""What every kernel binding shares: argument checks, the launch through
+ctypes, and the launch counters.
+
+A binding checks device, dtype, shape, contiguity and alignment
+(``check``), allocates its output with ``torch.empty``, launches on the
+current stream of the tensor's device without synchronising (``launch``),
+raises if the launch was refused, and adds one to its entry of ``LAUNCHES``.
+Bindings take CUDA tensors only: a tensor anywhere else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Mapping, Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+
+# launches of each kernel since the last ``reset_launches`` (a run's proof
+# that its path went through the kernels); one dict for all of them
+LAUNCHES = {
+    "fused_dense": 0,
+    "fused_sparse": 0,
+    "fused_gen": 0,
+    "bitunpack": 0,
+    "bytesplit": 0,
+    "sigridhash": 0,
+    "bucketize": 0,
+    "lognorm": 0,
+}
+
+# dynamic shared memory one block may use on Hopper (227 KB)
+MAX_SHARED_BYTES = 232_448
+
+P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check(
+    t: torch.Tensor, name: str, dtype: torch.dtype, shape, device=None, align: int = 4
+) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`
+    (None matches any extent), on `device` if given, aligned to `align`."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+        raise ValueError(f"{name} must be a CUDA tensor, got {where}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the words on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and (t.dim() != len(shape) or any(
+        want is not None and got != want for got, want in zip(t.shape, shape)
+    )):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def check_grid_y(f: int) -> None:
+    """Kernels with the feature on blockIdx.y take at most 65535 features."""
+    if f > 65535:
+        raise ValueError(f"{f} features exceed the grid's y limit of 65535")
+
+
+def check_shared(m: int) -> None:
+    """Kernels that stage m f32 boundaries per block in shared memory."""
+    if m * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{m} boundaries need {m * 4} bytes of shared memory, "
+            f"more than the {MAX_SHARED_BYTES} a block may use"
+        )
+
+
+def launch(
+    library: str,
+    signatures: Mapping[str, Sequence],
+    entry: str,
+    device: torch.device,
+    *args,
+) -> None:
+    """Call C entry `entry` of ``csrc/<library>.cu`` with `args` and the
+    current stream of `device`; raise on a nonzero ``cudaError_t``."""
+    lib = _build.load(library, signatures)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        msg = lib.presto_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")

@@ -7,8 +7,8 @@ interface (no PyTorch headers, so a build takes seconds)::
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``build/`` at the repository root, named by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing is built when a module is imported: the first launch
+the flags, the source and the shared headers ``csrc/*.cuh``, so an edited
+source or header rebuilds and an unchanged one is reused.  Nothing is built when a module is imported: the first launch
 builds, or ``build_all`` builds every source at once, one nvcc process per
 source, all started together.
 """
@@ -51,9 +51,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by sources and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by the flags, the source and
+    every shared header (``csrc/*.cuh``), so an edited header rebuilds every
+    library instead of reusing a stale one."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -11,63 +11,14 @@
 // reinterpret them as unsigned.  The tail is masked: no kernel needs the row
 // groups padded to a block multiple, so any G (including the K*G of a
 // megabatch) gives the same values as the plain versions in kernels/ref.py.
+// The per-value arithmetic lives in common.cuh, shared with the standalone
+// kernels of the host lowering.
 
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr uint32_t kGolden = 0x9E3779B1u;
-constexpr uint32_t kC1 = 0xCC9E2D51u;
-constexpr uint32_t kC2 = 0x85EBCA6Bu;
-constexpr uint32_t kC3 = 0xC2B2AE35u;
-
-// SigridHash: seeded murmur3 finalizer, then range reduce (uint32 lanes).
-__device__ __forceinline__ uint32_t sigridhash(uint32_t v, uint32_t seed, uint32_t d) {
-  uint32_t h = (v ^ (seed * kGolden)) * kC1 + seed;
-  h ^= h >> 16;
-  h *= kC2;
-  h ^= h >> 13;
-  h *= kC3;
-  h ^= h >> 16;
-  return h % d;
-}
-
-// Value j of a byte-split group: byte j of each of the 4 plane words, as
-// two byte permutes of plane pairs and one merge.
-template <int J>
-__device__ __forceinline__ float bytesplit_value(uint4 p) {
-  constexpr uint32_t sel = J | ((J + 4) << 4);
-  const uint32_t lo = __byte_perm(p.x, p.y, sel);  // [x.b_J, y.b_J, ..]
-  const uint32_t hi = __byte_perm(p.z, p.w, sel);  // [z.b_J, w.b_J, ..]
-  return __uint_as_float(__byte_perm(lo, hi, 0x5410));
-}
-
-// log1p(max(x, 0)) in the comparison form: fmaxf(NaN, 0) would give 0, but
-// the reference's max keeps NaN, and so does `x < 0 ? 0 : x`.
-__device__ __forceinline__ float lognorm(float x) { return log1pf(x < 0.f ? 0.f : x); }
-
-// Subnormal -> 0: the reference's compares (XLA on the CPU, and the TPU)
-// treat subnormal inputs as zero, so Bucketize flushes values and
-// boundaries alike.  Flushing keeps sorted boundaries sorted; NaN stays NaN.
-__device__ __forceinline__ float flush_denormal(float x) {
-  return fabsf(x) < FLT_MIN ? 0.f : x;
-}
-
-// Number of boundaries <= x over sorted, NaN-free (flushed) boundaries: the
-// compare-and-count of the reference, +inf padding included.  NaN counts
-// nothing.
-__device__ __forceinline__ uint32_t bucket(const float* b, int m, float x) {
-  x = flush_denormal(x);
-  if (isnan(x)) return 0;
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (b[mid] <= x) lo = mid + 1; else hi = mid;
-  }
-  return (uint32_t)lo;
-}
+using namespace presto;
 
 // ---------------------------------------------------------------------------
 // fused_dense — replaces repro/kernels/fused.py:fused_dense_pallas.
@@ -95,10 +46,10 @@ __global__ void fused_dense_kernel(const uint4* __restrict__ words,
 // Bound by bytes: 4W B in and 128 B out per group of 32 ids.  Design: the
 // TPU kernel's static shifts become a template on W, so every (word, bit)
 // offset is a compile-time constant and the group's W words sit in
-// registers.  One thread per group; value j reads word wid+1 only when it
-// straddles a word edge, so no read leaves the group.  A thread's loads and
-// stores are W and 32 words apart from its neighbour's: coalescing is poor
-// in this first version (stores go out as 8 16-byte writes per thread).
+// registers (unpack_group<W>, common.cuh).  One thread per group.  A
+// thread's loads and stores are W and 32 words apart from its neighbour's:
+// coalescing is poor in this first version (stores go out as 8 16-byte
+// writes per thread).
 template <int W>
 __global__ void fused_sparse_kernel(const uint32_t* __restrict__ words,
                                     const uint32_t* __restrict__ params,
@@ -109,25 +60,14 @@ __global__ void fused_sparse_kernel(const uint32_t* __restrict__ words,
   const long long f = i / groups_per_feature;
   const uint32_t seed = __ldg(params + 2 * f);
   const uint32_t d = __ldg(params + 2 * f + 1);
-  const uint32_t* p = words + i * W;
-  uint32_t w[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) w[k] = __ldg(p + k);
-  constexpr uint32_t mask = W == 32 ? 0xFFFFFFFFu : ((1u << (W & 31)) - 1u);
+  uint32_t w[W], v[32];
+  load_group<W>(words + i * W, w);
+  unpack_group<W>(w, v);
   int4* o = out + i * 8;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    uint32_t v[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int bit = (q * 4 + t) * W;
-      const int wid = bit >> 5, off = bit & 31;
-      uint32_t val = w[wid] >> off;
-      if (off != 0 && off + W > 32) val |= w[wid + 1 < W ? wid + 1 : W - 1] << (32 - off);
-      v[t] = sigridhash(val & mask, seed, d);
-    }
-    o[q] = make_int4((int)v[0], (int)v[1], (int)v[2], (int)v[3]);
-  }
+  for (int q = 0; q < 8; ++q)
+    o[q] = make_int4((int)sigridhash(v[4 * q], seed, d), (int)sigridhash(v[4 * q + 1], seed, d),
+                     (int)sigridhash(v[4 * q + 2], seed, d), (int)sigridhash(v[4 * q + 3], seed, d));
 }
 
 // ---------------------------------------------------------------------------
@@ -176,8 +116,6 @@ void launch_sparse(const uint32_t* words, const uint32_t* params, int4* out,
 
 extern "C" {
 
-const char* presto_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
 int presto_fused_dense(const void* words, void* out, long long n_groups, void* stream) {
   constexpr int threads = 256;
   const long long blocks = (n_groups + threads - 1) / threads;
@@ -196,14 +134,7 @@ int presto_fused_sparse(const void* words, const void* params, void* out, long l
   switch (width) {
 #define PRESTO_SPARSE_CASE(W) \
   case W: launch_sparse<W>(w, p, o, g, n, s); break;
-    PRESTO_SPARSE_CASE(1) PRESTO_SPARSE_CASE(2) PRESTO_SPARSE_CASE(3) PRESTO_SPARSE_CASE(4)
-    PRESTO_SPARSE_CASE(5) PRESTO_SPARSE_CASE(6) PRESTO_SPARSE_CASE(7) PRESTO_SPARSE_CASE(8)
-    PRESTO_SPARSE_CASE(9) PRESTO_SPARSE_CASE(10) PRESTO_SPARSE_CASE(11) PRESTO_SPARSE_CASE(12)
-    PRESTO_SPARSE_CASE(13) PRESTO_SPARSE_CASE(14) PRESTO_SPARSE_CASE(15) PRESTO_SPARSE_CASE(16)
-    PRESTO_SPARSE_CASE(17) PRESTO_SPARSE_CASE(18) PRESTO_SPARSE_CASE(19) PRESTO_SPARSE_CASE(20)
-    PRESTO_SPARSE_CASE(21) PRESTO_SPARSE_CASE(22) PRESTO_SPARSE_CASE(23) PRESTO_SPARSE_CASE(24)
-    PRESTO_SPARSE_CASE(25) PRESTO_SPARSE_CASE(26) PRESTO_SPARSE_CASE(27) PRESTO_SPARSE_CASE(28)
-    PRESTO_SPARSE_CASE(29) PRESTO_SPARSE_CASE(30) PRESTO_SPARSE_CASE(31) PRESTO_SPARSE_CASE(32)
+    PRESTO_FOR_EACH_WIDTH(PRESTO_SPARSE_CASE)
 #undef PRESTO_SPARSE_CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,13 +1,14 @@
-"""Public wrappers around the fused preprocessing kernels.
+"""Public wrappers around the preprocessing kernels.
 
 The observable semantics of ``repro.kernels.ops``: boundaries are padded
 with +inf to a multiple of 128 (so +inf counts the padding, as the reference
-does), and outputs come back as (F, G*4) or (F, G*32).  Where the JAX
-wrappers pad the row groups to a block multiple, the CUDA kernels mask the
-tail, so any G works.
+does), decodes come back as (F, G*4) or (F, G*32), and ``lognorm`` takes any
+shape.  Where the JAX wrappers pad the row groups or values to a block
+multiple, the CUDA kernels mask the tail, so any length works.
 
 A CPU tensor goes to the plain version (``kernels.ref``); a CUDA tensor goes
-to the CUDA kernel (``kernels.fused``), which launches or raises.  Per-feature
+to the CUDA kernel (``kernels.fused``, ``decode``, ``sigridhash``,
+``bucketize``, ``lognorm``), which launches or raises.  Per-feature
 seeds, table sizes and boundaries may be numpy arrays or tensors; the
 lowering hands tensors already on the words' device, so the produce path
 makes no host-to-device copy here.
@@ -18,13 +19,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import bucketize as _bk
+from repro_torch.kernels import decode as _dk
 from repro_torch.kernels import fused, ref
+from repro_torch.kernels import lognorm as _lk
+from repro_torch.kernels import sigridhash as _sk
 
 BOUNDARY_PAD = 128  # lane multiple the reference pads boundaries to
 
 
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
 def _backend(words: torch.Tensor):
-    return ref if words.device.type == "cpu" else fused
+    return ref if _on_cpu(words) else fused
 
 
 def as_words(x) -> torch.Tensor:
@@ -90,6 +99,45 @@ def fused_sparse(packed, seeds, max_values, *, width: int) -> torch.Tensor:
     f, g, _ = w.shape
     params = hash_params(seeds, max_values, w.device)
     return _backend(w).fused_sparse(w, params, width=width).reshape(f, g * 32)
+
+
+def decode_bitpack(packed, *, width: int) -> torch.Tensor:
+    """Grouped bitpack decode: (F, G, w) words -> (F, G*32) int32 values."""
+    w = as_words(packed)
+    f, g, _ = w.shape
+    out = ref.bitunpack_grouped(w, width) if _on_cpu(w) else _dk.bitunpack(w, width=width)
+    return out.reshape(f, g * 32)
+
+
+def decode_bytesplit(plane_words) -> torch.Tensor:
+    """Grouped byte-split decode: (F, G, 4) words -> (F, G*4) f32 values."""
+    w = as_words(plane_words)
+    f, g, _ = w.shape
+    out = ref.bytesplit_decode_grouped(w) if _on_cpu(w) else _dk.bytesplit(w)
+    return out.reshape(f, g * 4)
+
+
+def sigridhash(values, seeds, max_values) -> torch.Tensor:
+    """Feature normalization (Alg. 2). values (F, N) int -> (F, N) int32 in
+    [0, d)."""
+    v = torch.as_tensor(values)
+    v = (v if v.dtype == torch.int32 else v.to(torch.int32)).contiguous()
+    params = hash_params(seeds, max_values, v.device)
+    return ref.sigridhash_params(v, params) if _on_cpu(v) else _sk.sigridhash(v, params)
+
+
+def bucketize(values, boundaries) -> torch.Tensor:
+    """Feature generation (Alg. 1). values (F, R) f32, boundaries (F, m)
+    sorted -> (F, R) int32 bucket ids in [0, m], +inf padding counted."""
+    v = torch.as_tensor(values, dtype=torch.float32).contiguous()
+    b = pad_boundaries(boundaries, v.device)
+    return ref.bucketize(v, b) if _on_cpu(v) else _bk.bucketize(v, b)
+
+
+def lognorm(x) -> torch.Tensor:
+    """Dense normalization: log1p(max(x, 0)) elementwise, any shape."""
+    x = torch.as_tensor(x, dtype=torch.float32).contiguous()
+    return ref.lognorm(x) if _on_cpu(x) else _lk.lognorm(x)
 
 
 # -- host-side layout helpers -------------------------------------------------

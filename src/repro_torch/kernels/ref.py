@@ -1,9 +1,13 @@
 """Plain PyTorch versions of the preprocessing kernels.
 
-The twin of ``repro.kernels.ref``, plus the fused chains the CUDA kernels in
-``csrc/fused.cu`` compute, with the same arguments as their bindings in
-``kernels.fused``.  The CPU path runs these; ``chip_smoke.py`` holds every
-kernel against them on the card.  They run on any device.
+The twin of ``repro.kernels.ref``, plus the functions the CUDA kernels in
+``csrc/`` compute, with the same arguments as their bindings: the fused
+chains (``kernels.fused``), and the standalone passes ``bitunpack_grouped``
+and ``bytesplit_decode_grouped`` (``kernels.decode``),
+``sigridhash_params`` (``kernels.sigridhash``), ``bucketize``
+(``kernels.bucketize``) and ``lognorm`` (``kernels.lognorm``).  The CPU
+path runs these; ``chip_smoke.py`` holds every kernel against them on the
+card.  They run on any device.
 
 Encoded words are ``int32`` tensors carrying uint32 bit patterns.  PyTorch
 has no uint32 ``>>``, ``<<``, ``+`` or ``%`` on the CPU, so the arithmetic
@@ -58,6 +62,12 @@ def sigridhash(values: torch.Tensor, seed, max_value) -> torch.Tensor:
     s = _u32(seed)
     h = (_mul32(v ^ _mul32(s, _GOLDEN), _C1) + s) & _M32
     return (fmix32(h) % _u32(max_value)).to(torch.int32)
+
+
+def sigridhash_params(values: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """(F, N) values + (F, 2) [seed, max] -> (F, N) int32: the arguments of
+    the standalone kernel (``kernels.sigridhash.sigridhash``)."""
+    return sigridhash(values, params[:, :1], params[:, 1:])
 
 
 # -- Bucketize (Alg. 1) -------------------------------------------------------

@@ -19,7 +19,7 @@ from repro_torch.core import opgraph
 from repro_torch.core.presto import TorchPreStoEngine
 from repro_torch.core.spec import TransformSpec
 from repro_torch.data.synth import RMDataConfig, SyntheticRecSysSource
-from repro_torch.kernels import fused, ops
+from repro_torch.kernels import _binding, bucketize, decode, fused, lognorm, ops, sigridhash
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -108,3 +108,57 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     out = ops.fused_dense(w)
     assert out.device.type == "cpu" and out.shape == (2, 12)
     assert fused.LAUNCHES == before
+
+
+def test_standalone_bindings_refuse_cpu_tensors():
+    params = ops.hash_params([1, 2], [10, 10], torch.device("cpu"))
+    before = dict(_binding.LAUNCHES)
+    calls = (
+        lambda: decode.bitunpack(torch.zeros((2, 3, 7), dtype=torch.int32), width=7),
+        lambda: decode.bytesplit(torch.zeros((2, 3, 4), dtype=torch.int32)),
+        lambda: sigridhash.sigridhash(torch.zeros((2, 5), dtype=torch.int32), params),
+        lambda: bucketize.bucketize(torch.zeros((2, 5)), torch.zeros((2, 128))),
+        lambda: lognorm.lognorm(torch.zeros((3, 5, 7))),
+    )
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _binding.LAUNCHES == before
+
+
+def test_one_launch_counter_for_every_kernel():
+    assert fused.LAUNCHES is _binding.LAUNCHES
+    assert set(_binding.LAUNCHES) == {"fused_dense", "fused_sparse", "fused_gen", "bitunpack",
+                                      "bytesplit", "sigridhash", "bucketize", "lognorm"}
+
+
+def test_standalone_ops_send_cpu_tensors_to_the_plain_versions():
+    rng = np.random.default_rng(1)
+    before = dict(_binding.LAUNCHES)
+    w = rng.integers(0, 2**32, (2, 3, 6), dtype=np.uint32)
+    assert ops.decode_bitpack(w, width=6).device.type == "cpu"
+    x = ops.decode_bytesplit(w[..., :4])
+    assert x.device.type == "cpu" and x.shape == (2, 12)
+    assert ops.sigridhash(x.view(torch.int32), [1, 2], [10, 10]).device.type == "cpu"
+    assert ops.bucketize(x, np.zeros((2, 4), np.float32)).device.type == "cpu"
+    assert ops.lognorm(x).device.type == "cpu"
+    assert _binding.LAUNCHES == before
+
+
+def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edit to csrc/*.cuh renames every library, so no stale build of a
+    source that includes it is reused."""
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.library_path("a")
+    (csrc / "common.cuh").write_text("// v2\n")
+    assert _build.library_path("a") != first
+    (csrc / "common.cuh").write_text("// v1\n")
+    assert _build.library_path("a") == first
+    (csrc / "a.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build.library_path("a") != first

@@ -163,3 +163,120 @@ def test_boundaries_pad_with_inf_to_128():
     assert b.shape == (2, 640)
     assert torch.isinf(b[:, 600:]).all() and (b[:, 600:] > 0).all()
     assert ops.pad_boundaries(np.zeros((1, 256), np.float32), torch.device("cpu")).shape == (1, 256)
+
+
+# -- the standalone passes of the host lowering ---------------------------------
+
+
+def _bits(x) -> np.ndarray:
+    """Bit patterns of a decode's output, so NaN payloads compare exactly."""
+    a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return a.view(np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 130])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_decode_bitpack_matches_reference(width, g):
+    w = _words(width * 7 + g, (3, g, width))
+    want = np.asarray(jops.decode_bitpack(w, width=width))
+    got = ops.decode_bitpack(_t(w), width=width)
+    assert got.shape == (3, g * 32) and got.dtype == torch.int32
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("g", [1, 130])
+def test_decode_bytesplit_matches_reference_bitwise(g):
+    w = _words(100 + g, (3, g, 4))
+    want = np.asarray(jops.decode_bytesplit(w))
+    got = ops.decode_bytesplit(_t(w))
+    assert got.shape == (3, g * 4) and got.dtype == torch.float32
+    assert g == 1 or np.isnan(want).any()  # arbitrary words reach NaN payloads
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n", [1, 1500])  # not multiples of the 1024 tile
+def test_sigridhash_matches_reference(n):
+    v = _words(n, (3, n)).view(np.int32)
+    seeds, maxes = _params(n, 3)
+    want = np.asarray(jops.sigridhash(v, seeds, maxes))
+    got = ops.sigridhash(torch.from_numpy(v), seeds, maxes)
+    assert got.shape == (3, n) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("r", [5, 1500])
+@pytest.mark.parametrize("m", [32, 600])
+def test_bucketize_matches_reference(m, r):
+    x = _words(m * 3 + r, (3, r)).view(np.float32)
+    bounds = _sorted_bounds(m + 1, 3, m)
+    want = np.asarray(jops.bucketize(x, bounds))
+    got = ops.bucketize(torch.from_numpy(x), bounds)
+    assert got.shape == (3, r) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_lognorm_matches_reference_any_shape():
+    x = _words(11, (3, 5, 7)).view(np.float32)
+    want = np.asarray(jops.lognorm(x))
+    got = ops.lognorm(torch.from_numpy(x))
+    assert got.shape == (3, 5, 7) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **DENSE_TOL)
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+
+
+def test_c1_standalone_bucketize_counts_inf_padding_not_nan():
+    """The standalone pass pads to 128 with +inf as the fused one does, so
+    +inf counts the padding and NaN counts nothing."""
+    x = np.asarray([[np.nan, np.inf, -np.inf, 1.0]], np.float32)
+    bounds = np.asarray([[0.5, 1.0, 2.0, 3.0]], np.float32)
+    assert ops.bucketize(torch.from_numpy(x), bounds).tolist() == [[0, 128, 0, 2]]
+    np.testing.assert_array_equal(np.asarray(jops.bucketize(x, bounds)), [[0, 128, 0, 2]])
+    bounds = np.linspace(-1, 1, 1024, dtype=np.float32)[None]
+    x = np.asarray([[np.nan, np.inf, 0.0, 1e30]], np.float32)
+    assert ops.bucketize(torch.from_numpy(x), bounds).tolist() == [[0, 1024, 512, 1024]]
+
+
+def test_c6_standalone_bucketize_subnormals_as_zero():
+    x = np.asarray([[-5e-40, 5e-40, 1e-45, -0.0]], np.float32)
+    bounds = np.asarray([[-1e-39, 0.0, 1e-39, 1.0]], np.float32)
+    got = ops.bucketize(torch.from_numpy(x), bounds)
+    assert got.tolist() == [[3, 3, 3, 3]]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jops.bucketize(x, bounds)))
+
+
+def test_c5_standalone_lognorm_keeps_nan():
+    x = torch.tensor([np.nan, -1.0, -np.inf, np.inf, 0.0], dtype=torch.float32)
+    got = ops.lognorm(x)
+    assert torch.isnan(got[0])
+    assert got[1:].tolist() == [0.0, 0.0, float("inf"), 0.0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(jops.lognorm(x.numpy())), **DENSE_TOL)
+
+
+def test_standalone_ops_take_views():
+    """Transposed and offset views give the values of their contiguous
+    copies (the CUDA bindings take offset views through 4-byte accesses)."""
+    w = _t(_words(3, (2, 9, 4)))
+    flat = torch.from_numpy(_words(4, (1 + 2 * 9 * 4,)).view(np.int32))
+    offset = flat[1:].view(2, 9, 4)  # contiguous, 4 bytes past the buffer start
+    assert torch.equal(_bits_t(ops.decode_bytesplit(offset)),
+                       _bits_t(ops.decode_bytesplit(offset.clone())))
+    x = ops.decode_bytesplit(w)
+    assert torch.equal(ops.sigridhash(x.view(torch.int32).t(), [1] * 36, [97] * 36),
+                       ops.sigridhash(x.view(torch.int32).t().contiguous(), [1] * 36, [97] * 36))
+    torch.testing.assert_close(ops.lognorm(x.t()), ops.lognorm(x.t().contiguous()),
+                               rtol=0, atol=0, equal_nan=True)
+    bounds = np.sort(np.random.default_rng(5).standard_normal((36, 40)).astype(np.float32))
+    assert torch.equal(ops.bucketize(x.t(), bounds), ops.bucketize(x.t().contiguous(), bounds))
+
+
+def _bits_t(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32)
+
+
+def test_plain_sigridhash_params_matches_per_feature_hash():
+    v = torch.from_numpy(_words(9, (3, 50)).view(np.int32))
+    seeds, maxes = _params(9, 3)
+    params = ops.hash_params(seeds, maxes, torch.device("cpu"))
+    got = ref.sigridhash_params(v, params)
+    for f in range(3):
+        assert torch.equal(got[f], ref.sigridhash(v[f], int(seeds[f]), int(maxes[f])))

@@ -58,7 +58,7 @@ def small_rm():
     jstore = JStore(N_PIDS, 2, jsrc)
     want = {pid: jengine.produce_batch(jstore, pid) for pid in range(N_PIDS)}
     return {
-        "spec": spec, "jspec": jspec, "jengine": jengine, "src": src,
+        "spec": spec, "jspec": jspec, "jengine": jengine, "src": src, "jsrc": jsrc,
         "store": PartitionedStore(N_PIDS, 2, src), "want": want,
     }
 
@@ -174,10 +174,80 @@ def test_family_byte_accounting_matches_reference(kind):
         assert sum(pages.values()) - pages["gen"] == 49_836_032
 
 
-@pytest.mark.parametrize("placement", ["disagg", "hybrid", {"dense": "host"}])
-def test_host_placements_wait_for_a_later_slice(small_rm, placement):
-    with pytest.raises(NotImplementedError):
-        TorchPreStoEngine(small_rm["spec"], placement=placement, device="cpu")
+ENGINE_PLACEMENTS = ["presto", "disagg", "hybrid", {"gen": "host"}]
+KERNEL_MODES = [None, "fused", "unfused"]
+_PLACEMENT_IDS = ["presto", "disagg", "hybrid", "gen-host"]
+
+
+def _engines(small_rm, placement, kernel_mode):
+    engine = TorchPreStoEngine(small_rm["spec"], placement=placement,
+                               kernel_mode=kernel_mode, device="cpu")
+    jengine = PreStoEngine(small_rm["jspec"], placement=placement, kernel_mode=kernel_mode)
+    return engine, jengine
+
+
+@pytest.mark.parametrize("kernel_mode", KERNEL_MODES)
+@pytest.mark.parametrize("placement", ENGINE_PLACEMENTS, ids=_PLACEMENT_IDS)
+def test_engine_plan_matches_reference(small_rm, placement, kernel_mode):
+    """Every (placement, kernel_mode) lowers the reference's plan: the same
+    stages, structural hash, host families and route costs."""
+    engine, jengine = _engines(small_rm, placement, kernel_mode)
+    plan, jplan = engine.lowered_plan, jengine.lowered_plan
+    assert [(s.name, s.kind, s.placement) for s in plan.stages] == [
+        (s.name, s.kind, s.placement) for s in jplan.stages
+    ]
+    assert plan.structural_hash() == jplan.structural_hash()
+    assert engine.host_families() == jengine.host_families()
+    assert engine.family_placements == jengine.family_placements
+    for rows in (None, 512):
+        assert dataclasses.asdict(engine.route_costs(rows)) == dataclasses.asdict(
+            jengine.route_costs(rows))
+
+
+def test_disagg_keeps_the_fused_kernels_unless_unfused(small_rm):
+    """``placement="disagg"`` moves every family's traffic to the host but
+    lowers the fused kernels, as the reference does; only
+    ``kernel_mode="unfused"`` lowers the multi-pass plan."""
+    spec = small_rm["spec"]
+    disagg = TorchPreStoEngine(spec, placement="disagg", device="cpu")
+    assert disagg.host_families() == ("dense", "sparse", "gen", "lengths", "labels")
+    assert [s.name for s in disagg.lowered_plan.stages][:3] == [
+        "fused_dense", "fused_sparse", "fused_gen"]
+    presto = TorchPreStoEngine(spec, device="cpu")
+    assert disagg.lowered_plan.structural_hash() == presto.lowered_plan.structural_hash()
+    assert disagg.cache_signature() != presto.cache_signature()
+    unfused = TorchPreStoEngine(spec, placement="disagg", kernel_mode="unfused", device="cpu")
+    assert not any(s.kind.startswith("fused:") for s in unfused.lowered_plan.stages)
+    assert unfused.lowered_plan.host_families() == unfused.host_families()
+    with pytest.raises(ValueError, match="placement"):
+        TorchPreStoEngine(spec, placement="isp", device="cpu")
+
+
+_JAX_STREAMS = {}
+
+
+def _jax_stream(small_rm, jengine, megabatch):
+    """The JAX engine's batches over every pid.  Without a mesh they depend
+    on its lowered plan alone, so engines that lower alike share one run."""
+    key = (jengine.lowered_plan.structural_hash(), megabatch)
+    if key not in _JAX_STREAMS:
+        jstore = JStore(N_PIDS, 2, small_rm["jsrc"])
+        _JAX_STREAMS[key] = dict(jengine.produce_stream(jstore, range(N_PIDS),
+                                                        megabatch=megabatch))
+    return _JAX_STREAMS[key]
+
+
+@pytest.mark.parametrize("megabatch", [1, 2])
+@pytest.mark.parametrize("kernel_mode", KERNEL_MODES)
+@pytest.mark.parametrize("placement", ENGINE_PLACEMENTS, ids=_PLACEMENT_IDS)
+def test_engine_stream_matches_reference(small_rm, placement, kernel_mode, megabatch):
+    engine, jengine = _engines(small_rm, placement, kernel_mode)
+    want = _jax_stream(small_rm, jengine, megabatch)
+    out = list(engine.produce_stream(small_rm["store"], range(N_PIDS), megabatch=megabatch))
+    assert [pid for pid, _ in out] == list(range(N_PIDS))
+    for pid, mb in out:
+        _assert_batch_equal(mb, want[pid])
+        _assert_batch_equal(mb, small_rm["want"][pid])
 
 
 def test_dedup_pages_wait_for_a_later_slice():
