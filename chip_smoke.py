@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each of the eight kernels against its plain PyTorch version on the
 card (adversarial words at the test shapes and at the rm2 and rm5 shapes,
-unaligned views, plus the pinned NaN, +inf and subnormal edge cases), then
+unaligned views, plus the pinned NaN, +inf and subnormal edge cases; the
+bit-packed kernels at every width 1..32, ragged G, the megabatch-2 shape and
+views 4 bytes past 16-byte alignment), then
 drives three paths at full RM2 width over one 8-partition
 ``PartitionedStore``, each with the launch counters set to 0 just before it
 and read just after:
@@ -21,9 +23,12 @@ and read just after:
 * ``hybrid`` (the cost model's placement): pids 4-7 at megabatch 2;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
-the same pid, dense included.  It prints the unfused plan's per-stage
-latency breakdown (the paper's Fig. 5/12), per-kernel times beside their
-bounds, the presto path's time split, one JSON line describing the kernels,
+the same pid, dense included.  The lengths decode runs the ``bitunpack``
+kernel through its own entry point and is counted and timed apart as
+``bitunpack.lengths``.  It prints the unfused plan's per-stage latency
+breakdown (the paper's Fig. 5/12), per-kernel times beside their bounds
+(CUDA-event times, and each kernel's device time from the profiler), the
+presto path's time split, one JSON line describing the kernels,
 the card's name and power limit, and, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Without a CUDA device it exits 1 at once.
@@ -53,6 +58,7 @@ SOURCES = {
     "fused_sparse": CSRC + "fused.cu",
     "fused_gen": CSRC + "fused.cu",
     "bitunpack": CSRC + "decode.cu",
+    "bitunpack.lengths": CSRC + "decode.cu",
     "bytesplit": CSRC + "decode.cu",
     "sigridhash": CSRC + "sigridhash.cu",
     "bucketize": CSRC + "bucketize.cu",
@@ -63,36 +69,44 @@ REPLACES = {
     "fused_sparse": "src/repro/kernels/fused.py:106",
     "fused_gen": "src/repro/kernels/fused.py:81",
     "bitunpack": "src/repro/kernels/decode.py:49",
+    "bitunpack.lengths": "src/repro/kernels/decode.py:49",
     "bytesplit": "src/repro/kernels/decode.py:84",
     "sigridhash": "src/repro/kernels/sigridhash.py:43",
     "bucketize": "src/repro/kernels/bucketize.py:52",
     "lognorm": "src/repro/kernels/lognorm.py:25",
 }
-# the kernel each lowered stage kind launches (the lengths decode runs B4)
+# the launch counter each lowered stage kind adds to; the lengths decode runs
+# B4 at the lengths' width and is counted apart ("bitunpack.lengths")
 STAGE_KERNELS = {
     "fused:decode.bytesplit+lognorm": "fused_dense",
     "fused:decode.bitpack+sigridhash": "fused_sparse",
     "fused:decode.bytesplit+bucketize+sigridhash": "fused_gen",
     "decode.bitpack": "bitunpack",
-    "decode.lengths": "bitunpack",
+    "decode.lengths": "bitunpack.lengths",
     "decode.bytesplit": "bytesplit",
     "sigridhash": "sigridhash",
     "bucketize": "bucketize",
     "lognorm": "lognorm",
 }
 TRANSFORM_KINDS = ("bucketize", "sigridhash", "lognorm")
-TEST_WIDTHS = (1, 6, 7, 17, 24, 31, 32)
+ALL_WIDTHS = tuple(range(1, 33))
 # kernel-vs-plain cases: the test shapes (G not a multiple of 128), then the
-# rm2 page shapes and, for fused_gen, rm5's 4096 boundaries
+# rm2 page shapes (megabatch 1 and 2) and, for fused_gen, rm5's 4096
+# boundaries
 DENSE_CASES = ((3, 1), (3, 130), (504, 2048))  # (F, G)
-SPARSE_CASES = ((3, 1, TEST_WIDTHS), (3, 130, TEST_WIDTHS), (42, 8192, (24,)))
+SPARSE_CASES = ((3, 1, ALL_WIDTHS), (3, 130, ALL_WIDTHS), (42, 8192, (24,)),
+                (42, 16384, (24,)))  # (F, G, widths)
 GEN_CASES = ((3, 1, 32), (3, 130, 32), (3, 1, 600), (3, 130, 600),
              (21, 2048, 1024), (42, 2048, 4096))  # (F, G, m)
 # the standalone kernels: test shapes, then the rm2 shapes of the unfused
-# plan (decode_sparse, decode_lengths; decode_dense, decode_gen; hash_sparse,
-# hash_gen; bucketize_gen, and rm5's 4096 boundaries; lognorm_dense)
-BITUNPACK_CASES = ((3, 1, TEST_WIDTHS), (3, 130, TEST_WIDTHS), (42, 8192, (24,)),
-                   (42, 256, (6,)))
+# plan (decode_sparse, decode_lengths, each at megabatch 1 and 2;
+# decode_dense, decode_gen; hash_sparse, hash_gen; bucketize_gen, and rm5's
+# 4096 boundaries; lognorm_dense)
+BITUNPACK_CASES = ((3, 1, ALL_WIDTHS), (3, 130, ALL_WIDTHS), (42, 8192, (24,)),
+                   (42, 16384, (24,)), (42, 256, (6,)), (42, 512, (6,)))
+# the bit-packed kernels also take every width as a view 4 bytes past
+# 16-byte alignment, where no tile may go by bulk copy
+BITPACK_OFFSET_CASES = ((3, 130, ALL_WIDTHS), (42, 256, (6,)))
 BYTESPLIT_CASES = ((3, 1), (3, 130), (504, 2048), (21, 2048))  # (F, G)
 HASH_CASES = ((3, 1), (3, 1500), (3, 1027), (42, 262144), (21, 8192))  # (F, N)
 BUCKETIZE_CASES = ((3, 5, 32), (3, 1500, 32), (3, 5, 600), (3, 1500, 600),
@@ -185,6 +199,12 @@ def phase_kernels(rng, dev, errs: dict) -> None:
             hold("fused_sparse", fused.fused_sparse(w, p, width=width),
                  ref.fused_sparse(w, p, width=width), errs)
             cases += 1
+    for f, g, widths in BITPACK_OFFSET_CASES:
+        for width in widths:
+            w, p = offset_view(rng, (f, g, width), dev), params(f)
+            hold("fused_sparse", fused.fused_sparse(w, p, width=width),
+                 ref.fused_sparse(w, p, width=width), errs)
+            cases += 1
     for f, g, m in GEN_CASES:
         w, p = words(rng, (f, g, 4), dev), params(f)
         b = ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev)
@@ -251,6 +271,12 @@ def phase_standalone_kernels(rng, dev, errs: dict) -> None:
     for f, g, widths in BITUNPACK_CASES:
         for width in widths:
             w = words(rng, (f, g, width), dev)
+            hold("bitunpack", decode.bitunpack(w, width=width),
+                 ref.bitunpack_grouped(w, width), errs)
+            cases += 1
+    for f, g, widths in BITPACK_OFFSET_CASES:
+        for width in widths:
+            w = offset_view(rng, (f, g, width), dev)
             hold("bitunpack", decode.bitunpack(w, width=width),
                  ref.bitunpack_grouped(w, width), errs)
             cases += 1
@@ -469,6 +495,27 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in marks)
 
 
+def device_ms(fn, kernel: str, reps: int, flush: torch.Tensor) -> float | None:
+    """Mean device time of the launches of ``<kernel>_kernel`` in `fn`, from
+    the profiler, L2 flushed before each call: the kernel alone, without the
+    launch latency that an event pair around a short kernel also measures.
+    None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    hits = [(e.count, e.device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.key]
+    n = sum(c for c, _ in hits)
+    return sum(t for _, t in hits) / n / 1e3 if n else None
+
+
 def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
     """Kernel times at the paths' rm2 inputs, the presto path's split, and
     each path's device time by kernel."""
@@ -480,6 +527,7 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
     pages = engine.put_pages(engine.pin_pages(engine.stage_partition(store, 0)))
     env = prepare_env(pages, engine.lowered_plan.gen_index)
     dense_w, sparse_w, gen_w = env["dense_words"], env["sparse_words"], env["gen_words"]
+    len_w = env["length_words"]
     sp = ops.hash_params(spec.sparse_seeds, spec.sparse_max, dev)
     gp = ops.hash_params(spec.gen_seeds, spec.gen_max, dev)
     bounds = ops.pad_boundaries(spec.bucket_boundaries, dev)
@@ -527,6 +575,12 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
             yard=None, yard_name="none (no library call decodes bitpack)",
             nbytes=sparse_w.numel() * 4 + nvals(sparse_w, 32) * 4,
             ops=nvals(sparse_w, 32) * 4),
+        "bitunpack.lengths": dict(
+            run=lambda: decode.bitunpack_lengths(len_w, width=cfg.len_width),
+            plain=lambda: ref.bitunpack_grouped(len_w, cfg.len_width),
+            yard=None, yard_name="none (no library call decodes bitpack)",
+            nbytes=len_w.numel() * 4 + nvals(len_w, 32) * 4,
+            ops=nvals(len_w, 32) * 4),
         "bytesplit": dict(
             run=lambda: decode.bytesplit(dense_w),
             plain=lambda: ref.bytesplit_decode_grouped(dense_w), bits=True,
@@ -550,6 +604,11 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
             library=lambda: torch.log1p(torch.clamp_min(x_dense, 0)),
             nbytes=x_dense.numel() * 4 * 2, ops=x_dense.numel() * 20),
     }
+    # each row's first input
+    shapes = {"fused_dense": dense_w, "fused_sparse": sparse_w, "fused_gen": gen_w,
+              "bitunpack": sparse_w, "bitunpack.lengths": len_w, "bytesplit": dense_w,
+              "sigridhash": sparse_raw, "bucketize": decoded_gen, "lognorm": x_dense}
+    shapes = {k: list(v.shape) for k, v in shapes.items()}
     out = []
     for name, r in rows_spec.items():
         got = r["run"]()
@@ -558,6 +617,7 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
         if library is not None:  # the same function: it must agree
             (hold_bits if r.get("bits") else hold)(f"{name} library", library(), got, {})
         ms = time_ms(r["run"], 50, flush)
+        dev_ms = device_ms(r["run"], name.split(".")[0], 20, flush)
         plain_ms = time_ms(r["plain"], 5, flush)
         library_ms = time_ms(library, 20, flush) if library is not None else None
         yard_ms = time_ms(r["yard"], 20, flush) if r.get("yard") else None
@@ -565,16 +625,17 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
         ops_ms = r["ops"] / PEAK_OPS_PER_S * 1e3
         bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
         launches = {path: counts[name] for path, counts in by_path.items()}
-        print(f"kernel {name} rm2 {tuple(got.shape)}: {ms:.4f} ms, {r['nbytes']} bytes, "
+        print(f"kernel {name} rm2 {tuple(shapes[name])}: {ms:.5f} ms (device "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.5f} ms'}), {r['nbytes']} bytes, "
               f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, library "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, yardstick "
               f"{'n/a' if yard_ms is None else f'{yard_ms:.4f} ms'} "
               f"[{r.get('yard_name', 'none')}], launches {launches}")
         out.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "shape": shapes[name],
             "replaces": REPLACES[name], "launches": sum(launches.values()),
             "launches_by_path": launches,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "yardstick": r.get("yard_name"), "yardstick_ms": yard_ms,
         })

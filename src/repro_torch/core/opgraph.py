@@ -408,7 +408,7 @@ def _op_fn(node: OpNode, spec: TransformSpec, device: torch.device) -> Callable[
             kernel = OP_KERNELS[node.kind]
             return lambda w: (kernel(w),)
         if node.encoding in ("bitpack", "lengths"):
-            decode, width = OP_KERNELS["decode.bitpack"], node.width
+            decode, width = OP_KERNELS[node.kind], node.width
             if node.encoding == "bitpack":
                 return lambda w: (decode(w, width=width),)
             # (S, G, lw) words -> (rows, S) lengths

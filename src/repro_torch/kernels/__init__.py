@@ -11,6 +11,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import (
     decode_bitpack,
     decode_bytesplit,
+    decode_lengths,
     fused_dense,
     fused_gen,
     fused_sparse,
@@ -28,6 +29,7 @@ from repro_torch.kernels.ops import (
 OP_KERNELS = {
     "decode.bytesplit": decode_bytesplit,
     "decode.bitpack": decode_bitpack,
+    "decode.lengths": decode_lengths,
     "bucketize": ops.bucketize,
     "sigridhash": ops.sigridhash,
     "lognorm": ops.lognorm,
@@ -63,6 +65,7 @@ __all__ = [
     "ROW_LOCAL_KINDS",
     "decode_bitpack",
     "decode_bytesplit",
+    "decode_lengths",
     "fused_dense",
     "fused_gen",
     "fused_sparse",

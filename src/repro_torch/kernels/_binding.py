@@ -18,12 +18,15 @@ import torch
 from repro_torch.kernels import _build
 
 # launches of each kernel since the last ``reset_launches`` (a run's proof
-# that its path went through the kernels); one dict for all of them
+# that its path went through the kernels); one dict for all of them.  The
+# lengths decode runs the bitunpack kernel through its own entry point
+# (``decode.bitunpack_lengths``) and is counted apart as "bitunpack.lengths".
 LAUNCHES = {
     "fused_dense": 0,
     "fused_sparse": 0,
     "fused_gen": 0,
     "bitunpack": 0,
+    "bitunpack.lengths": 0,
     "bytesplit": 0,
     "sigridhash": 0,
     "bucketize": 0,

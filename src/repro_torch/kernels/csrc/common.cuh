@@ -73,29 +73,149 @@ __device__ __forceinline__ uint32_t bucket(const float* b, int m, float x) {
   return (uint32_t)lo;
 }
 
-// The 32 W-bit values of one bit-packed group, held in W words, LSB-first.
-// Every (word, offset) is a compile-time constant; value j reads word wid+1
-// only when it straddles a word edge, so no read leaves the group.  With `w`
-// and `out` in registers and the loop unrolled, nothing touches memory.
-template <int W>
-__device__ __forceinline__ void unpack_group(const uint32_t* w, uint32_t out[32]) {
-  constexpr uint32_t mask = W == 32 ? 0xFFFFFFFFu : ((1u << (W & 31)) - 1u);
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int bit = j * W;
-    const int wid = bit >> 5, off = bit & 31;
-    uint32_t val = w[wid] >> off;
-    if (off != 0 && off + W > 32) val |= w[wid + 1 < W ? wid + 1 : W - 1] << (32 - off);
-    out[j] = val & mask;
+// ---------------------------------------------------------------------------
+// Bit-packed tiles: the one design of bitunpack (decode.cu) and fused_sparse
+// (fused.cu), which differ only in the SigridHash applied to each value.
+//
+// (F, G, W) words -> (F, G, 32) values.  Group g of a feature holds values
+// [32g, 32g + 32) in its W words, LSB-first; no value crosses into the next
+// group.  A tile is up to kTileGroups groups of one feature: its words are
+// one contiguous range of the input, its values one contiguous range of the
+// output.  The block stages the tile's words in shared memory, then each
+// warp takes one group at a time and lane j extracts value j, so every warp
+// store writes one whole 128-byte line.
+
+constexpr int kTileThreads = 256;  // 8 warps: 8 groups in flight per block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One-arrival transaction barrier; the init is made visible to the bulk
+// copy (the async proxy) before any thread uses the barrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(1u)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A range of n words goes by one bulk copy when its start and length are
+// multiples of 16 bytes (the copy's rule); otherwise by 4-byte loads.
+__device__ __forceinline__ bool bulk_ok(const uint32_t* src, int n) {
+  return ((reinterpret_cast<uintptr_t>(src) & 15) | (n & 3)) == 0;
+}
+
+// One thread: copy n words global -> shared, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t* dst, const uint32_t* src, int n,
+                                          uint64_t* bar) {
+  const uint32_t bytes = 4u * n;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The whole block: copy n words global -> shared with coalesced 4-byte
+// loads (the caller synchronises).
+__device__ __forceinline__ void scalar_load(uint32_t* dst, const uint32_t* src, int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = __ldg(src + k);
+}
+
+// Where value j (j = the lane) lies in every group of width W: bits
+// [jW, jW + W) span word lo and, when they straddle a word edge, word lo + 1.
+// `hi` is clamped into the group; that is exact, because when value j does
+// not straddle, the bits taken from `hi` land at or above bit W and the mask
+// removes them.
+struct LaneBits {
+  int lo, hi, off;
+  uint32_t mask;
+  __device__ __forceinline__ explicit LaneBits(int width) {
+    const int bit = (threadIdx.x & 31) * width;
+    lo = bit >> 5;
+    off = bit & 31;
+    hi = min(lo + 1, width - 1);
+    mask = 0xFFFFFFFFu >> (32 - width);
+  }
+  __device__ __forceinline__ uint32_t operator()(const uint32_t* group) const {
+    return __funnelshift_r(group[lo], group[hi], off) & mask;
+  }
+};
+
+// The values of n staged groups (s: their words) to `out` (their first
+// value): warp w takes groups w, w + 8, ...; lane j stores value j.
+template <bool kHash>
+__device__ __forceinline__ void unpack_groups(const uint32_t* s, uint32_t* __restrict__ out,
+                                              int n, int width, const LaneBits& bits,
+                                              uint32_t seed, uint32_t d) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int g = threadIdx.x >> 5; g < n; g += kTileThreads / 32) {
+    uint32_t v = bits(s + g * width);
+    if (kHash) v = sigridhash(v, seed, d);
+    out[g * 32 + lane] = v;
   }
 }
 
-// Load one group's W words through the read-only cache into registers.
-template <int W>
-__device__ __forceinline__ void load_group(const uint32_t* __restrict__ p, uint32_t w[W]) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) w[k] = __ldg(p + k);
+constexpr int kTileGroups = 128;  // groups per tile: 12 KB of words at W = 24
+
+// One stage, the body of bitunpack_kernel and fused_sparse_kernel: block
+// (x, f) stages tile x of feature f and unpacks it.  Grid (ceil(G /
+// kTileGroups), F); dynamic shared memory kTileGroups * W words.  The [seed, max] pair (params,
+// read only when hashing) is read once per block.
+template <bool kHash>
+__device__ __forceinline__ void unpack_tile(const uint32_t* __restrict__ words,
+                                            const uint32_t* __restrict__ params,
+                                            uint32_t* __restrict__ out,
+                                            long long groups_per_feature, int width) {
+  extern __shared__ __align__(128) uint32_t s[];
+  __shared__ uint64_t bar;
+  const int f = blockIdx.y;
+  const long long g0 = (long long)blockIdx.x * kTileGroups;
+  const int n = (int)min((long long)kTileGroups, groups_per_feature - g0);
+  const long long first = (long long)f * groups_per_feature + g0;
+  const uint32_t* src = words + first * width;
+  const int nw = n * width;
+  const bool bulk = bulk_ok(src, nw);
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      mbar_init(&bar);
+      bulk_load(s, src, nw, &bar);
+    }
+  } else {
+    scalar_load(s, src, nw);
+  }
+  uint32_t seed = 0, d = 0;
+  if (kHash) {
+    seed = __ldg(params + 2 * f);
+    d = __ldg(params + 2 * f + 1);
+  }
+  const LaneBits bits(width);
+  __syncthreads();
+  if (bulk) mbar_wait(&bar, 0);
+  unpack_groups<kHash>(s, out + first * 32, n, width, bits, seed, d);
 }
+
+inline dim3 tile_grid(long long f, long long g) {
+  return dim3((unsigned)((g + kTileGroups - 1) / kTileGroups), (unsigned)f);
+}
+
+inline size_t tile_smem(int width) { return (size_t)kTileGroups * width * sizeof(uint32_t); }
 
 // Launch-side test for the kernels' 16-byte vector accesses.
 inline bool aligned16(const void* p) {
@@ -103,13 +223,6 @@ inline bool aligned16(const void* p) {
 }
 
 }  // namespace presto
-
-// The width switch of the bit-packed kernels: expands CASE(W) for W in 1..32.
-#define PRESTO_FOR_EACH_WIDTH(CASE)                                          \
-  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9)    \
-  CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16) CASE(17)    \
-  CASE(18) CASE(19) CASE(20) CASE(21) CASE(22) CASE(23) CASE(24) CASE(25)    \
-  CASE(26) CASE(27) CASE(28) CASE(29) CASE(30) CASE(31) CASE(32)
 
 extern "C" const char* presto_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -12,36 +12,6 @@ namespace {
 using namespace presto;
 
 // ---------------------------------------------------------------------------
-// bitunpack — replaces repro/kernels/decode.py:bitunpack_pallas.
-// (F, G, W) bit-packed words -> (F, G, 32) int32 values.
-// Bound by bytes: 4W B in and 128 B out per group of 32 values, a handful of
-// shifts per value.  Design: the TPU kernel's static shifts become a
-// template on W (unpack_group<W>, shared with fused_sparse), so the group's
-// W words sit in registers and every (word, offset) is a constant.  One
-// thread per group; as in fused_sparse, neighbouring threads' loads and
-// stores are W and 32 words apart, so coalescing is poor in this first
-// version.
-template <int W>
-__global__ void bitunpack_kernel(const uint32_t* __restrict__ words,
-                                 uint4* __restrict__ out, long long n_groups) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n_groups) return;
-  uint32_t w[W], v[32];
-  load_group<W>(words + i * W, w);
-  unpack_group<W>(w, v);
-  uint4* o = out + i * 8;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) o[q] = make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-
-template <int W>
-void launch_bitunpack(const uint32_t* words, uint4* out, long long n, cudaStream_t stream) {
-  constexpr int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  bitunpack_kernel<W><<<(unsigned)blocks, threads, 0, stream>>>(words, out, n);
-}
-
-// ---------------------------------------------------------------------------
 // bytesplit — replaces repro/kernels/decode.py:bytesplit_pallas.
 // (F, G, 4) plane words -> (F, G, 4) f32 values, bit-exact (NaN payloads
 // included): the kernel permutes bytes and stores the bits, with no float
@@ -66,22 +36,28 @@ __global__ void bytesplit_kernel(const uint32_t* __restrict__ words,
                       bytesplit_bits<3>(p));
 }
 
+// bitunpack — replaces repro/kernels/decode.py:bitunpack_pallas.
+// (F, G, W) bit-packed words -> (F, G, 32) int32 values.  Bound by bytes:
+// 4W B in and 128 B out per group, against two shared-memory reads, a funnel
+// shift and a mask per value.  Design: the bit-packed tiles of common.cuh
+// with no hash: a block's tile of 128 groups arrives in shared memory by one
+// bulk copy (4-byte loads where the range is not 16-byte aligned), lane j of
+// a warp extracts value j of a group, and each warp store is one whole line.
+__global__ void __launch_bounds__(kTileThreads)
+    bitunpack_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
+                     long long groups_per_feature, int width) {
+  unpack_tile<false>(words, nullptr, out, groups_per_feature, width);
+}
+
 }  // namespace
 
 extern "C" {
 
-int presto_bitunpack(const void* words, void* out, long long n_groups, int width,
+int presto_bitunpack(const void* words, void* out, long long f, long long g, int width,
                      void* stream) {
-  const uint32_t* w = (const uint32_t*)words;
-  uint4* o = (uint4*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (width) {
-#define PRESTO_BITUNPACK_CASE(W) \
-  case W: launch_bitunpack<W>(w, o, n_groups, s); break;
-    PRESTO_FOR_EACH_WIDTH(PRESTO_BITUNPACK_CASE)
-#undef PRESTO_BITUNPACK_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (width < 1 || width > 32) return (int)cudaErrorInvalidValue;
+  bitunpack_kernel<<<tile_grid(f, g), kTileThreads, tile_smem(width), (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (uint32_t*)out, g, width);
   return (int)cudaGetLastError();
 }
 

@@ -41,36 +41,6 @@ __global__ void fused_dense_kernel(const uint4* __restrict__ words,
 }
 
 // ---------------------------------------------------------------------------
-// fused_sparse — replaces repro/kernels/fused.py:fused_sparse_pallas.
-// (F, G, W) bit-packed words + (F, 2) [seed, max] -> (F, G, 32) int32.
-// Bound by bytes: 4W B in and 128 B out per group of 32 ids.  Design: the
-// TPU kernel's static shifts become a template on W, so every (word, bit)
-// offset is a compile-time constant and the group's W words sit in
-// registers (unpack_group<W>, common.cuh).  One thread per group.  A
-// thread's loads and stores are W and 32 words apart from its neighbour's:
-// coalescing is poor in this first version (stores go out as 8 16-byte
-// writes per thread).
-template <int W>
-__global__ void fused_sparse_kernel(const uint32_t* __restrict__ words,
-                                    const uint32_t* __restrict__ params,
-                                    int4* __restrict__ out,
-                                    long long groups_per_feature, long long n_groups) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n_groups) return;
-  const long long f = i / groups_per_feature;
-  const uint32_t seed = __ldg(params + 2 * f);
-  const uint32_t d = __ldg(params + 2 * f + 1);
-  uint32_t w[W], v[32];
-  load_group<W>(words + i * W, w);
-  unpack_group<W>(w, v);
-  int4* o = out + i * 8;
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    o[q] = make_int4((int)sigridhash(v[4 * q], seed, d), (int)sigridhash(v[4 * q + 1], seed, d),
-                     (int)sigridhash(v[4 * q + 2], seed, d), (int)sigridhash(v[4 * q + 3], seed, d));
-}
-
-// ---------------------------------------------------------------------------
 // fused_gen — replaces repro/kernels/fused.py:fused_gen_pallas.
 // (F, G, 4) plane words + (F, m) sorted boundaries (+inf padded) + (F, 2)
 // [seed, max] -> (F, G, 4) int32.
@@ -104,12 +74,18 @@ __global__ void fused_gen_kernel(const uint4* __restrict__ words,
                      (int)sigridhash(bucket(sb, m, bytesplit_value<3>(p)), seed, d));
 }
 
-template <int W>
-void launch_sparse(const uint32_t* words, const uint32_t* params, int4* out,
-                   long long gpf, long long n, cudaStream_t stream) {
-  constexpr int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  fused_sparse_kernel<W><<<(unsigned)blocks, threads, 0, stream>>>(words, params, out, gpf, n);
+// ---------------------------------------------------------------------------
+// fused_sparse — replaces repro/kernels/fused.py:fused_sparse_pallas.
+// (F, G, W) bit-packed words + (F, 2) [seed, max] -> (F, G, 32) int32 ids.
+// Bound by bytes: 4W B in and 128 B out per group of 32 ids; the hash (about
+// 35 integer instructions per id, one 32-bit modulo among them) stays under
+// the byte time.  Design: bitunpack's bit-packed tiles (common.cuh), each
+// value hashed before its whole-line store; the block reads its feature's
+// [seed, max] once.
+__global__ void __launch_bounds__(kTileThreads)
+    fused_sparse_kernel(const uint32_t* __restrict__ words, const uint32_t* __restrict__ params,
+                        uint32_t* __restrict__ out, long long groups_per_feature, int width) {
+  unpack_tile<true>(words, params, out, groups_per_feature, width);
 }
 
 }  // namespace
@@ -126,18 +102,9 @@ int presto_fused_dense(const void* words, void* out, long long n_groups, void* s
 
 int presto_fused_sparse(const void* words, const void* params, void* out, long long f,
                         long long g, int width, void* stream) {
-  const uint32_t* w = (const uint32_t*)words;
-  const uint32_t* p = (const uint32_t*)params;
-  int4* o = (int4*)out;
-  const long long n = f * g;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (width) {
-#define PRESTO_SPARSE_CASE(W) \
-  case W: launch_sparse<W>(w, p, o, g, n, s); break;
-    PRESTO_FOR_EACH_WIDTH(PRESTO_SPARSE_CASE)
-#undef PRESTO_SPARSE_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (width < 1 || width > 32) return (int)cudaErrorInvalidValue;
+  fused_sparse_kernel<<<tile_grid(f, g), kTileThreads, tile_smem(width), (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const uint32_t*)params, (uint32_t*)out, g, width);
   return (int)cudaGetLastError();
 }
 

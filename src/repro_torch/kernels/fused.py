@@ -56,6 +56,7 @@ def fused_sparse(words: torch.Tensor, params: torch.Tensor, *, width: int) -> to
     check(words, "words", torch.int32, (None, None, width))
     f, g, _ = words.shape
     check(params, "params", torch.int32, (f, 2), words.device)
+    check_grid_y(f)
     out = torch.empty((f, g, 32), dtype=torch.int32, device=words.device)
     if f * g:
         launch(

@@ -109,6 +109,14 @@ def decode_bitpack(packed, *, width: int) -> torch.Tensor:
     return out.reshape(f, g * 32)
 
 
+def decode_lengths(packed, *, width: int) -> torch.Tensor:
+    """``decode_bitpack`` of the per-row lengths, its launches counted apart."""
+    w = as_words(packed)
+    f, g, _ = w.shape
+    out = ref.bitunpack_grouped(w, width) if _on_cpu(w) else _dk.bitunpack_lengths(w, width=width)
+    return out.reshape(f, g * 32)
+
+
 def decode_bytesplit(plane_words) -> torch.Tensor:
     """Grouped byte-split decode: (F, G, 4) words -> (F, G*4) f32 values."""
     w = as_words(plane_words)

@@ -115,6 +115,7 @@ def test_standalone_bindings_refuse_cpu_tensors():
     before = dict(_binding.LAUNCHES)
     calls = (
         lambda: decode.bitunpack(torch.zeros((2, 3, 7), dtype=torch.int32), width=7),
+        lambda: decode.bitunpack_lengths(torch.zeros((2, 3, 6), dtype=torch.int32), width=6),
         lambda: decode.bytesplit(torch.zeros((2, 3, 4), dtype=torch.int32)),
         lambda: sigridhash.sigridhash(torch.zeros((2, 5), dtype=torch.int32), params),
         lambda: bucketize.bucketize(torch.zeros((2, 5)), torch.zeros((2, 128))),
@@ -129,7 +130,8 @@ def test_standalone_bindings_refuse_cpu_tensors():
 def test_one_launch_counter_for_every_kernel():
     assert fused.LAUNCHES is _binding.LAUNCHES
     assert set(_binding.LAUNCHES) == {"fused_dense", "fused_sparse", "fused_gen", "bitunpack",
-                                      "bytesplit", "sigridhash", "bucketize", "lognorm"}
+                                      "bitunpack.lengths", "bytesplit", "sigridhash",
+                                      "bucketize", "lognorm"}
 
 
 def test_standalone_ops_send_cpu_tensors_to_the_plain_versions():
@@ -137,6 +139,7 @@ def test_standalone_ops_send_cpu_tensors_to_the_plain_versions():
     before = dict(_binding.LAUNCHES)
     w = rng.integers(0, 2**32, (2, 3, 6), dtype=np.uint32)
     assert ops.decode_bitpack(w, width=6).device.type == "cpu"
+    assert torch.equal(ops.decode_lengths(w, width=6), ops.decode_bitpack(w, width=6))
     x = ops.decode_bytesplit(w[..., :4])
     assert x.device.type == "cpu" and x.shape == (2, 12)
     assert ops.sigridhash(x.view(torch.int32), [1, 2], [10, 10]).device.type == "cpu"
@@ -162,3 +165,42 @@ def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
     assert _build.library_path("a") == first
     (csrc / "a.cu").write_text('#include "common.cuh"\n// edited\n')
     assert _build.library_path("a") != first
+
+
+def test_lengths_decode_is_counted_apart_from_the_sparse_decode(monkeypatch):
+    """The op graph's two bitpack decodes launch the same kernel through two
+    entry points: the sparse decode counts as "bitunpack", the lengths decode
+    as "bitunpack.lengths", whatever their widths."""
+    from repro_torch import kernels
+    from repro_torch.core.opgraph import Decode, _op_fn
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(decode, "check", lambda *a, **k: None)
+    monkeypatch.setattr(decode, "launch", lambda *a: None)
+    saved = dict(_binding.LAUNCHES)
+    try:
+        _binding.reset_launches()
+        w = torch.zeros((2, 3, 6), dtype=torch.int32)
+        for kind, n in (("bitpack", 2), ("lengths", 3)):
+            node = Decode("d", "sparse", ("w",), "v", encoding=kind, width=6)
+            assert kernels.OP_KERNELS[node.kind] is getattr(ops, f"decode_{kind}")
+            for _ in range(n):
+                _op_fn(node, None, w.device)(w)
+        assert _binding.LAUNCHES["bitunpack"] == 2
+        assert _binding.LAUNCHES["bitunpack.lengths"] == 3
+        fused.reset_launches()
+        assert not any(_binding.LAUNCHES.values())
+    finally:
+        _binding.LAUNCHES.update(saved)
+
+
+def test_chip_smoke_names_a_timing_row_for_every_counter():
+    """Every launch counter is a kernel row of chip_smoke.py (source, TPU
+    kernel replaced), and every stage kind of a lowered plan maps to one."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert set(chip_smoke.SOURCES) == set(_binding.LAUNCHES) == set(chip_smoke.REPLACES)
+    assert set(chip_smoke.STAGE_KERNELS.values()) == set(_binding.LAUNCHES)
