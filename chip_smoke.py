@@ -10,7 +10,9 @@ holds each of the eight kernels against its plain PyTorch version on the
 card (adversarial words at the test shapes and at the rm2 and rm5 shapes,
 unaligned views, plus the pinned NaN, +inf and subnormal edge cases; the
 bit-packed kernels at every width 1..32, ragged G, the megabatch-2 shape and
-views 4 bytes past 16-byte alignment), then
+views 4 bytes past 16-byte alignment; the bucket kernels at rm2 (megabatch 1
+and 2), rm4 and rm5, a ragged R, unpadded boundary counts and offset views),
+then
 drives three paths at full RM2 width over one 8-partition
 ``PartitionedStore``, each with the launch counters set to 0 just before it
 and read just after:
@@ -27,7 +29,9 @@ the same pid, dense included.  The lengths decode runs the ``bitunpack``
 kernel through its own entry point and is counted and timed apart as
 ``bitunpack.lengths``.  It prints the unfused plan's per-stage latency
 breakdown (the paper's Fig. 5/12), per-kernel times beside their bounds
-(CUDA-event times, and each kernel's device time from the profiler), the
+(CUDA-event times, each kernel's device time from the profiler, and the
+device time of one copy of its input as the floor a launch of that size
+meets; the latency-bound rows also at the megabatch-2 and rm5 shapes), the
 presto path's time split, one JSON line describing the kernels,
 the card's name and power limit, and, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -97,7 +101,8 @@ DENSE_CASES = ((3, 1), (3, 130), (504, 2048))  # (F, G)
 SPARSE_CASES = ((3, 1, ALL_WIDTHS), (3, 130, ALL_WIDTHS), (42, 8192, (24,)),
                 (42, 16384, (24,)))  # (F, G, widths)
 GEN_CASES = ((3, 1, 32), (3, 130, 32), (3, 1, 600), (3, 130, 600),
-             (21, 2048, 1024), (42, 2048, 4096))  # (F, G, m)
+             (21, 2048, 1024), (21, 4096, 1024), (42, 2048, 2048),
+             (42, 2048, 4096))  # (F, G, m): rm2 at K=1 and 2, rm4, rm5
 # the standalone kernels: test shapes, then the rm2 shapes of the unfused
 # plan (decode_sparse, decode_lengths, each at megabatch 1 and 2;
 # decode_dense, decode_gen; hash_sparse, hash_gen; bucketize_gen, and rm5's
@@ -110,7 +115,14 @@ BITPACK_OFFSET_CASES = ((3, 130, ALL_WIDTHS), (42, 256, (6,)))
 BYTESPLIT_CASES = ((3, 1), (3, 130), (504, 2048), (21, 2048))  # (F, G)
 HASH_CASES = ((3, 1), (3, 1500), (3, 1027), (42, 262144), (21, 8192))  # (F, N)
 BUCKETIZE_CASES = ((3, 5, 32), (3, 1500, 32), (3, 5, 600), (3, 1500, 600),
-                   (21, 8192, 1024), (42, 8192, 4096))  # (F, R, m)
+                   (21, 8192, 1024), (21, 16384, 1024), (21, 8191, 1024),
+                   (42, 8192, 2048), (42, 8192, 4096))  # (F, R, m)
+# the bucket kernels also take boundaries as given (m not padded to 128, so
+# the tree has NaN slots and no row is a multiple of 4 floats), and views 4
+# bytes past 16-byte alignment: the values of bucketize at full width, the
+# boundaries of both, where every access goes by 4 bytes
+UNPADDED_M = (1, 3, 127, 129)
+BUCKET_OFFSET_CASES = ((21, 8192, 1024), (3, 1500, 600))  # (F, R, m)
 LOGNORM_CASES = ((3, 5, 7), (1027,), (504, 8192))
 MAIN_CONFIG, MAIN_ROWS = "rm2", None  # full width, 8192 rows per partition
 
@@ -210,6 +222,16 @@ def phase_kernels(rng, dev, errs: dict) -> None:
         b = ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev)
         hold("fused_gen", fused.fused_gen(w, b, p), ref.fused_gen(w, b, p), errs)
         cases += 1
+    for m in UNPADDED_M:
+        w, p = words(rng, (3, 130, 4), dev), params(3)
+        b = sorted_bounds(rng, 3, m, dev)
+        hold("fused_gen", fused.fused_gen(w, b, p), ref.fused_gen(w, b, p), errs)
+        cases += 1
+    for f, r, m in BUCKET_OFFSET_CASES:
+        w, p = words(rng, (f, r // 4, 4), dev), params(f)
+        b = offset_copy(ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev))
+        hold("fused_gen", fused.fused_gen(w, b, p), ref.fused_gen(w, b, p), errs)
+        cases += 1
 
     # C1: +inf counts the +inf padding, NaN counts nothing; subnormal values
     # and boundaries compare as zero, as in the reference
@@ -217,6 +239,8 @@ def phase_kernels(rng, dev, errs: dict) -> None:
         ([np.nan, np.inf, -np.inf, 1.0], [0.5, 1.0, 2.0, 3.0], [0, 128, 0, 2]),
         ([np.nan, np.inf, 0.0, 1e30], list(np.linspace(-1, 1, 1024)), [0, 1024, 512, 1024]),
         ([-5e-40, 5e-40, 1e-45, -0.0], [-1e-39, 0.0, 1e-39, 1.0], [3, 3, 3, 3]),
+        # values equal to boundaries, a run of repeats, -0 against +0
+        ([1.0, 2.0, -0.0, 0.0], [-1e-39, -0.0, 0.0, 1.0, 1.0, 1.0, 2.0], [6, 7, 3, 3]),
     ):
         planes, _ = enc.bytesplit_encode(np.asarray(vals, np.float32))
         w = ops.as_words(ops.regroup_bytesplit(planes, 4)[None]).to(dev)
@@ -253,9 +277,16 @@ def hold_bits(name: str, out: torch.Tensor, want: torch.Tensor, errs: dict) -> N
 def offset_view(rng, shape, device) -> torch.Tensor:
     """Arbitrary words as a contiguous view 4 bytes past a 16-byte aligned
     buffer start, so 16-byte vector accesses are not allowed."""
-    n = int(np.prod(shape))
-    v = words(rng, (n + 1,), device)[1:].view(shape)
-    check(v.data_ptr() % 16 == 4 and v.is_contiguous(), "offset view layout")
+    return offset_copy(words(rng, shape, device))
+
+
+def offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` 4 bytes past 16-byte alignment."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    shift = (4 - buf.data_ptr()) % 16 // 4
+    v = buf[shift:shift + t.numel()].view(t.shape)
+    v.copy_(t)
+    check(v.data_ptr() % 16 == 4 and v.is_contiguous(), "offset copy layout")
     return v
 
 
@@ -299,10 +330,17 @@ def phase_standalone_kernels(rng, dev, errs: dict) -> None:
         b = ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev)
         hold("bucketize", bucketize.bucketize(x, b), ref.bucketize(x, b), errs)
         cases += 1
-    x = offset_view(rng, (3, 1500), dev).view(torch.float32)
-    b = ops.pad_boundaries(sorted_bounds(rng, 3, 600, dev), dev)
-    hold("bucketize", bucketize.bucketize(x, b), ref.bucketize(x, b), errs)
-    cases += 1
+    for m in UNPADDED_M:
+        x = words(rng, (3, 1501), dev).view(torch.float32)
+        b = sorted_bounds(rng, 3, m, dev)
+        hold("bucketize", bucketize.bucketize(x, b), ref.bucketize(x, b), errs)
+        cases += 1
+    for f, r, m in BUCKET_OFFSET_CASES:
+        x = offset_view(rng, (f, r), dev).view(torch.float32)
+        b = ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev)
+        for bb in (b, offset_copy(b)):
+            hold("bucketize", bucketize.bucketize(x, bb), ref.bucketize(x, bb), errs)
+            cases += 1
     for shape in LOGNORM_CASES:
         x = words(rng, shape, dev).view(torch.float32)
         hold("lognorm", lognorm.lognorm(x), ref.lognorm(x), errs)
@@ -316,6 +354,8 @@ def phase_standalone_kernels(rng, dev, errs: dict) -> None:
         ([np.nan, np.inf, -np.inf, 1.0], [0.5, 1.0, 2.0, 3.0], [0, 128, 0, 2]),
         ([np.nan, np.inf, 0.0, 1e30], list(np.linspace(-1, 1, 1024)), [0, 1024, 512, 1024]),
         ([-5e-40, 5e-40, 1e-45, -0.0], [-1e-39, 0.0, 1e-39, 1.0], [3, 3, 3, 3]),
+        # values equal to boundaries, a run of repeats, -0 against +0
+        ([1.0, 2.0, -0.0, 0.0], [-1e-39, -0.0, 0.0, 1.0, 1.0, 1.0, 2.0], [6, 7, 3, 3]),
     ):
         x = torch.tensor([vals], dtype=torch.float32, device=dev)
         b = ops.pad_boundaries(np.asarray([bounds], np.float32), dev)
@@ -352,11 +392,17 @@ def phase_standalone_kernels(rng, dev, errs: dict) -> None:
           f"with NaN equal); the 3 fused chains equal their unfused kernel chains bitwise")
 
 
-def check_launches(path: str, plan, launches: dict) -> None:
+def path_totals(by_k: dict) -> dict:
+    """One path's launch counts summed over its megabatch sizes."""
+    names = next(iter(by_k.values()))
+    return {name: sum(counts[name] for counts in by_k.values()) for name in names}
+
+
+def check_launches(path: str, plan, by_k: dict) -> None:
     """Every kernel the plan's stages run was launched on this path, and no
     other kernel was."""
     want = {STAGE_KERNELS[st.kind] for st in plan.stages if st.kind in STAGE_KERNELS}
-    for name, n in launches.items():
+    for name, n in path_totals(by_k).items():
         if name in want:
             check(n > 0, f"{path}: {name} was never launched")
         else:
@@ -377,14 +423,19 @@ def phase_main_path(dev):
     engine = TorchPreStoEngine(spec)
     rows = src.rows
 
+    # the counts are read per megabatch size, so each lands on its own shape
+    launches = {}
     fused.reset_launches()
     t0 = time.perf_counter()
     first = list(engine.produce_stream(store, range(4)))
     t1 = time.perf_counter()
+    launches[1] = dict(fused.LAUNCHES)
+    fused.reset_launches()
     second = list(engine.produce_stream(store, range(4, 8), megabatch=2))
     t2 = time.perf_counter()
-    launches = dict(fused.LAUNCHES)
-    print(f"main path (presto): {MAIN_CONFIG} rows={rows}, 8 partitions, launches {launches}")
+    launches[2] = dict(fused.LAUNCHES)
+    print(f"main path (presto): {MAIN_CONFIG} rows={rows}, 8 partitions, launches at "
+          f"megabatch 1 {launches[1]}, at megabatch 2 {launches[2]}")
     check_launches("presto", engine.lowered_plan, launches)
     delivered = first + second
     check([pid for pid, _ in delivered] == list(range(8)), "pids out of order")
@@ -428,7 +479,7 @@ def phase_host_paths(spec, store, fused_batches: dict) -> dict:
         t0 = time.perf_counter()
         out = list(engine.produce_stream(store, pids, megabatch=k))
         dt = time.perf_counter() - t0
-        by_path[name] = dict(fused.LAUNCHES)
+        by_path[name] = {k: dict(fused.LAUNCHES)}
         check_launches(name, engine.lowered_plan, by_path[name])
         check([pid for pid, _ in out] == list(pids), f"{name}: pids out of order")
         for pid, mb in out:
@@ -495,31 +546,79 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in marks)
 
 
-def device_ms(fn, kernel: str, reps: int, flush: torch.Tensor) -> float | None:
-    """Mean device time of the launches of ``<kernel>_kernel`` in `fn`, from
-    the profiler, L2 flushed before each call: the kernel alone, without the
-    launch latency that an event pair around a short kernel also measures.
-    None where the profiler saw no device time."""
+def device_ms(fn, reps: int, flush: torch.Tensor, kernel: str | None = None) -> float | None:
+    """Device time from the profiler, L2 flushed before each call of `fn`:
+    the mean over the launches of ``<kernel>_kernel`` (the kernel alone,
+    without the launch latency that an event pair around a short kernel also
+    measures) or, with no kernel named, the mean per call of everything `fn`
+    runs on the card (the flush's fill excluded).  The profiler now and
+    then returns a session without the kernel's records, so an empty
+    session is taken again, up to three times; None where all three were
+    empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if kernel is None:
+        keep = lambda key: "Fill" not in key and "Memset" not in key  # noqa: E731
+    else:
+        keep = lambda key: f"{kernel}_kernel" in key  # noqa: E731
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    hits = [(e.count, e.device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.key]
-    n = sum(c for c, _ in hits)
-    return sum(t for _, t in hits) / n / 1e3 if n else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        hits = [(e.count, e.device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and keep(e.key) and e.device_time_total > 0]
+        if hits:
+            n = sum(c for c, _ in hits) if kernel is not None else reps
+            return sum(t for _, t in hits) / n / 1e3
+        print(f"device_ms: a profiler session held no {kernel or 'device'} records; "
+              f"taking it again")
+    return None
+
+
+def bound(nbytes: int, ops: int):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the fp32 rate, whichever is larger."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def fmt_ms(v) -> str:
+    return "n/a" if v is None else f"{v:.5f} ms"
+
+
+def rm5_gen_inputs(dev):
+    """One full-width rm5 partition's generated-feature inputs (42
+    features, 4096 boundaries): the words, the padded boundaries and the
+    hash params, as the presto plan would take them."""
+    from repro_torch.core.opgraph import prepare_env
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.data.synth import make_rm_source
+    from repro_torch.kernels import ops
+
+    src = make_rm_source("rm5", rows=MAIN_ROWS, seed=0)
+    spec = TransformSpec.from_source(src)
+    engine = TorchPreStoEngine(spec)
+    pages = engine.put_pages(engine.pin_pages(engine.stage_partition(
+        PartitionedStore(1, num_devices=1, source=src), 0)))
+    gen_w = prepare_env(pages, engine.lowered_plan.gen_index)["gen_words"]
+    return (gen_w, ops.pad_boundaries(spec.bucket_boundaries, dev),
+            ops.hash_params(spec.gen_seeds, spec.gen_max, dev))
 
 
 def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
-    """Kernel times at the paths' rm2 inputs, the presto path's split, and
+    """Kernel times at the paths' rm2 inputs (and, for the latency-bound
+    rows, at the megabatch-2 and rm5 shapes), the presto path's split, and
     each path's device time by kernel."""
     from repro_torch.core.opgraph import prepare_env
+    from repro_torch.core.preprocess import flatten_megabatch
     from repro_torch.kernels import bucketize, decode, fused, lognorm, ops, ref, sigridhash
 
     engine = engines["presto"]
@@ -531,13 +630,22 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
     sp = ops.hash_params(spec.sparse_seeds, spec.sparse_max, dev)
     gp = ops.hash_params(spec.gen_seeds, spec.gen_max, dev)
     bounds = ops.pad_boundaries(spec.bucket_boundaries, dev)
-    width, m = cfg.id_width, bounds.shape[1]
+    width = cfg.id_width
     decoded_dense = ref.bytesplit_decode_grouped(dense_w)
     decoded_gen = ref.bytesplit_decode_grouped(gen_w).reshape(gen_w.shape[0], -1)
     # the unfused plan's intermediates: decoded dense (504, 8192), raw
-    # sparse ids (42, 262144)
+    # sparse ids (42, 262144), the gen family's bucket counts (21, 8192)
     x_dense = decoded_dense.reshape(dense_w.shape[0], -1)
     sparse_raw = ref.bitunpack_grouped(sparse_w, width).reshape(sparse_w.shape[0], -1)
+    gen_counts = ref.bucketize(decoded_gen, bounds)
+    # the gen family at megabatch 2 (pids 4 and 5) and at rm5
+    pages2 = flatten_megabatch(engine.put_pages(engine.pin_pages(
+        engine.stage_megabatch(store, [4, 5]))))
+    gen_w2 = prepare_env(pages2, engine.lowered_plan.gen_index)["gen_words"]
+    decoded_gen2 = ref.bytesplit_decode_grouped(gen_w2).reshape(gen_w2.shape[0], -1)
+    del pages2
+    gen_w5, bounds5, gp5 = rm5_gen_inputs(dev)
+    decoded_gen5 = ref.bytesplit_decode_grouped(gen_w5).reshape(gen_w5.shape[0], -1)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > L2
 
     def nvals(t, per_group):
@@ -548,97 +656,138 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
         return (dense_w.view(torch.uint8).reshape(f, g, 4, 4).transpose(-1, -2)
                 .contiguous().view(torch.float32).reshape(f, g, 4))
 
-    search_steps = int(np.ceil(np.log2(m + 1)))
+    def steps(b):
+        return int(np.ceil(np.log2(b.shape[1] + 1)))
+
     searchsorted = "torch.searchsorted(bounds, x, right=True) on decoded floats"
+
+    def gen_row(w, b, p, x):
+        return dict(
+            run=lambda: fused.fused_gen(w, b, p), plain=lambda: ref.fused_gen(w, b, p),
+            yard=lambda: torch.searchsorted(b, x, right=True), yard_name=searchsorted,
+            nbytes=w.numel() * 4 * 2 + b.numel() * 4 + p.numel() * 4,
+            ops=nvals(w, 4) * (16 + 3 * steps(b)), first=w)
+
+    def bucketize_row(x, b):
+        return dict(
+            run=lambda: bucketize.bucketize(x, b), plain=lambda: ref.bucketize(x, b),
+            yard=lambda: torch.searchsorted(b, x, right=True), yard_name=searchsorted,
+            nbytes=x.numel() * 4 * 2 + b.numel() * 4, ops=x.numel() * (2 + 3 * steps(b)),
+            first=x)
+
     rows_spec = {
         "fused_dense": dict(
             run=lambda: fused.fused_dense(dense_w), plain=lambda: ref.fused_dense(dense_w),
             yard=lambda: torch.log1p(torch.clamp_min(decoded_dense, 0)),
             yard_name="torch.log1p(torch.clamp_min(x, 0)) on decoded floats",
-            nbytes=dense_w.numel() * 4 * 2, ops=nvals(dense_w, 4) * 24),
+            nbytes=dense_w.numel() * 4 * 2, ops=nvals(dense_w, 4) * 24, first=dense_w),
         "fused_sparse": dict(
             run=lambda: fused.fused_sparse(sparse_w, sp, width=width),
             plain=lambda: ref.fused_sparse(sparse_w, sp, width=width),
             yard=None, yard_name="none (no library call decodes bitpack)",
             nbytes=sparse_w.numel() * 4 + sp.numel() * 4 + nvals(sparse_w, 32) * 4,
-            ops=nvals(sparse_w, 32) * 16),
-        "fused_gen": dict(
-            run=lambda: fused.fused_gen(gen_w, bounds, gp),
-            plain=lambda: ref.fused_gen(gen_w, bounds, gp),
-            yard=lambda: torch.searchsorted(bounds, decoded_gen, right=True),
-            yard_name=searchsorted,
-            nbytes=gen_w.numel() * 4 * 2 + bounds.numel() * 4 + gp.numel() * 4,
-            ops=nvals(gen_w, 4) * (16 + 3 * search_steps)),
+            ops=nvals(sparse_w, 32) * 16, first=sparse_w),
+        "fused_gen": gen_row(gen_w, bounds, gp, decoded_gen),
         "bitunpack": dict(
             run=lambda: decode.bitunpack(sparse_w, width=width),
             plain=lambda: ref.bitunpack_grouped(sparse_w, width),
             yard=None, yard_name="none (no library call decodes bitpack)",
             nbytes=sparse_w.numel() * 4 + nvals(sparse_w, 32) * 4,
-            ops=nvals(sparse_w, 32) * 4),
+            ops=nvals(sparse_w, 32) * 4, first=sparse_w),
         "bitunpack.lengths": dict(
             run=lambda: decode.bitunpack_lengths(len_w, width=cfg.len_width),
             plain=lambda: ref.bitunpack_grouped(len_w, cfg.len_width),
             yard=None, yard_name="none (no library call decodes bitpack)",
             nbytes=len_w.numel() * 4 + nvals(len_w, 32) * 4,
-            ops=nvals(len_w, 32) * 4),
+            ops=nvals(len_w, 32) * 4, first=len_w),
         "bytesplit": dict(
             run=lambda: decode.bytesplit(dense_w),
             plain=lambda: ref.bytesplit_decode_grouped(dense_w), bits=True,
             library=lib_bytesplit,
-            nbytes=dense_w.numel() * 4 * 2, ops=nvals(dense_w, 4) * 3),
+            nbytes=dense_w.numel() * 4 * 2, ops=nvals(dense_w, 4) * 3, first=dense_w),
         "sigridhash": dict(
             run=lambda: sigridhash.sigridhash(sparse_raw, sp),
             plain=lambda: ref.sigridhash_params(sparse_raw, sp),
             yard=None, yard_name="none (no library call hashes)",
             nbytes=sparse_raw.numel() * 4 * 2 + sp.numel() * 4,
-            ops=sparse_raw.numel() * 12),
-        "bucketize": dict(
-            run=lambda: bucketize.bucketize(decoded_gen, bounds),
-            plain=lambda: ref.bucketize(decoded_gen, bounds),
-            yard=lambda: torch.searchsorted(bounds, decoded_gen, right=True),
-            yard_name=searchsorted,
-            nbytes=decoded_gen.numel() * 4 * 2 + bounds.numel() * 4,
-            ops=decoded_gen.numel() * (2 + 3 * search_steps)),
+            ops=sparse_raw.numel() * 12, first=sparse_raw),
+        "bucketize": bucketize_row(decoded_gen, bounds),
         "lognorm": dict(
             run=lambda: lognorm.lognorm(x_dense), plain=lambda: ref.lognorm(x_dense),
             library=lambda: torch.log1p(torch.clamp_min(x_dense, 0)),
-            nbytes=x_dense.numel() * 4 * 2, ops=x_dense.numel() * 20),
+            nbytes=x_dense.numel() * 4 * 2, ops=x_dense.numel() * 20, first=x_dense),
     }
-    # each row's first input
-    shapes = {"fused_dense": dense_w, "fused_sparse": sparse_w, "fused_gen": gen_w,
-              "bitunpack": sparse_w, "bitunpack.lengths": len_w, "bytesplit": dense_w,
-              "sigridhash": sparse_raw, "bucketize": decoded_gen, "lognorm": x_dense}
-    shapes = {k: list(v.shape) for k, v in shapes.items()}
-    out = []
-    for name, r in rows_spec.items():
+    # more shapes of the latency-bound rows: (kernel, row, its launches as
+    # measured on the paths, spec).  The megabatch-2 rows take the counts of
+    # the paths' megabatch-2 runs; 5b and 6b share their kernel with another
+    # stage at another shape, and the counters do not split by stage
+    more_spec = (
+        ("fused_gen", "3 K=2", 2, gen_row(gen_w2, bounds, gp, decoded_gen2)),
+        ("fused_gen", "3b rm5", "not on the paths", gen_row(gen_w5, bounds5, gp5, decoded_gen5)),
+        ("bytesplit", "5b", "not split from decode_dense's", dict(
+            run=lambda: decode.bytesplit(gen_w), plain=lambda: ref.bytesplit_decode_grouped(gen_w),
+            bits=True, nbytes=gen_w.numel() * 4 * 2, ops=nvals(gen_w, 4) * 3, first=gen_w)),
+        ("sigridhash", "6b", "not split from hash_sparse's", dict(
+            run=lambda: sigridhash.sigridhash(gen_counts, gp),
+            plain=lambda: ref.sigridhash_params(gen_counts, gp),
+            nbytes=gen_counts.numel() * 4 * 2 + gp.numel() * 4, ops=gen_counts.numel() * 12,
+            first=gen_counts)),
+        ("bucketize", "7 K=2", 2, bucketize_row(decoded_gen2, bounds)),
+        ("bucketize", "7b rm5", "not on the paths", bucketize_row(decoded_gen5, bounds5)),
+    )
+
+    def at_k(name, k):
+        return {path: by_k[k][name] for path, by_k in by_path.items() if k in by_k}
+
+    def measure(name, r):
         got = r["run"]()
         (hold_bits if r.get("bits") else hold)(name, got, r["plain"](), errs)
         library = r.get("library")
         if library is not None:  # the same function: it must agree
             (hold_bits if r.get("bits") else hold)(f"{name} library", library(), got, {})
-        ms = time_ms(r["run"], 50, flush)
-        dev_ms = device_ms(r["run"], name.split(".")[0], 20, flush)
+        first = r["first"]
+        bound_ms, bound_by = bound(r["nbytes"], r["ops"])
+        return {
+            "shape": list(first.shape), "bytes": r["nbytes"],
+            "ms": time_ms(r["run"], 50, flush),
+            "device_ms": device_ms(r["run"], 20, flush, kernel=name.split(".")[0]),
+            "floor_device_ms": device_ms(lambda: first.clone(), 20, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(library, 20, flush) if library is not None else None,
+            "yardstick": r.get("yard_name"),
+            "yardstick_ms": time_ms(r["yard"], 20, flush) if r.get("yard") else None,
+            "yardstick_device_ms": device_ms(r["yard"], 20, flush) if r.get("yard") else None,
+        }
+
+    out = []
+    for name, r in rows_spec.items():
+        row = measure(name, r)
         plain_ms = time_ms(r["plain"], 5, flush)
-        library_ms = time_ms(library, 20, flush) if library is not None else None
-        yard_ms = time_ms(r["yard"], 20, flush) if r.get("yard") else None
-        bytes_ms = r["nbytes"] / PEAK_BYTES_PER_S * 1e3
-        ops_ms = r["ops"] / PEAK_OPS_PER_S * 1e3
-        bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-        launches = {path: counts[name] for path, counts in by_path.items()}
-        print(f"kernel {name} rm2 {tuple(shapes[name])}: {ms:.5f} ms (device "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.5f} ms'}), {r['nbytes']} bytes, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, library "
-              f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, yardstick "
-              f"{'n/a' if yard_ms is None else f'{yard_ms:.4f} ms'} "
-              f"[{r.get('yard_name', 'none')}], launches {launches}")
+        launches = {path: path_totals(by_k)[name] for path, by_k in by_path.items()}
+        print(f"kernel {name} rm2 {tuple(row['shape'])}: {row['ms']:.5f} ms (device "
+              f"{fmt_ms(row['device_ms'])}, floor {fmt_ms(row['floor_device_ms'])}), "
+              f"{row['bytes']} bytes, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
+              f"plain {plain_ms:.4f} ms, library {fmt_ms(row['library_ms'])}, yardstick "
+              f"{fmt_ms(row['yardstick_ms'])} (device {fmt_ms(row['yardstick_device_ms'])}) "
+              f"[{r.get('yard_name', 'none')}], "
+              f"launches {launches} (at megabatch 1 {at_k(name, 1)})")
+        # the row's shape is megabatch 1's; launches counts every megabatch
         out.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "shape": shapes[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(launches.values()),
-            "launches_by_path": launches,
-            "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "yardstick": r.get("yard_name"), "yardstick_ms": yard_ms,
+            "launches_by_path": launches, "launches_at_megabatch_1": at_k(name, 1),
+            "launches_at_megabatch_2": at_k(name, 2), "max_abs_err": errs[name],
+            "plain_ms": plain_ms, **row, "more_shapes": [],
         })
+    by_name = {row["name"]: row for row in out}
+    for name, label, k, r in more_spec:
+        row = measure(name, r)
+        launches = at_k(name, k) if k == 2 else k
+        print(f"kernel {name} row {label} {tuple(row['shape'])}: {row['ms']:.5f} ms (device "
+              f"{fmt_ms(row['device_ms'])}, floor {fmt_ms(row['floor_device_ms'])}), "
+              f"{row['bytes']} bytes, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
+              f"yardstick device {fmt_ms(row['yardstick_device_ms'])}, launches {launches}")
+        by_name[name]["more_shapes"].append({"row": label, "launches_by_path": launches, **row})
 
     # main path split per partition (megabatch 1): host staging, copy in,
     # device compute
@@ -698,6 +847,7 @@ def profile_transform(path: str, engine, dev_pages) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -718,15 +868,16 @@ def main() -> int:
     engines, by_path = phase_host_paths(engine.spec, store, fused_batches)
     del fused_batches
     by_path = {"presto": launches, **by_path}
-    for name in launches:
-        check(sum(p[name] for p in by_path.values()) > 0, f"{name} was never launched")
-    print(f"launches: all {len(launches)} kernels launched on the paths "
-          f"({ {n: sum(p[n] for p in by_path.values()) for n in launches} })")
+    totals = {n: sum(path_totals(by_k)[n] for by_k in by_path.values()) for n in launches[1]}
+    for name, n in totals.items():
+        check(n > 0, f"{name} was never launched")
+    print(f"launches: all {len(totals)} kernels launched on the paths ({totals})")
     engines["presto"] = engine
     phase_breakdown(engines, store)
     torch.cuda.synchronize()
     kernels = phase_timings(engines, store, dev, errs, by_path)
     torch.cuda.synchronize()
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -73,10 +73,13 @@ def check_grid_y(f: int) -> None:
 
 
 def check_shared(m: int) -> None:
-    """Kernels that stage m f32 boundaries per block in shared memory."""
-    if m * 4 > MAX_SHARED_BYTES:
+    """Kernels that stage m f32 boundaries per block in shared memory, as a
+    tree of m rounded up to a power of two slots (``bucket_smem`` in
+    ``csrc/common.cuh``)."""
+    nbytes = 4 << (m - 1).bit_length() if m > 0 else 0
+    if nbytes > MAX_SHARED_BYTES:
         raise ValueError(
-            f"{m} boundaries need {m * 4} bytes of shared memory, "
+            f"{m} boundaries need {nbytes} bytes of shared memory, "
             f"more than the {MAX_SHARED_BYTES} a block may use"
         )
 

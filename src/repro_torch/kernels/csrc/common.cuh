@@ -11,7 +11,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <stdint.h>
 
 namespace presto {
@@ -51,27 +50,6 @@ __device__ __forceinline__ float bytesplit_value(uint4 p) {
 // log1p(max(x, 0)) in the comparison form: fmaxf(NaN, 0) would give 0, but
 // the reference's max keeps NaN, and so does `x < 0 ? 0 : x`.
 __device__ __forceinline__ float lognorm(float x) { return log1pf(x < 0.f ? 0.f : x); }
-
-// Subnormal -> 0: the reference's compares (XLA on the CPU, and the TPU)
-// treat subnormal inputs as zero, so Bucketize flushes values and
-// boundaries alike.  Flushing keeps sorted boundaries sorted; NaN stays NaN.
-__device__ __forceinline__ float flush_denormal(float x) {
-  return fabsf(x) < FLT_MIN ? 0.f : x;
-}
-
-// Number of boundaries <= x over sorted, NaN-free (flushed) boundaries: the
-// compare-and-count of the reference, +inf padding included.  NaN counts
-// nothing.
-__device__ __forceinline__ uint32_t bucket(const float* b, int m, float x) {
-  x = flush_denormal(x);
-  if (isnan(x)) return 0;
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (b[mid] <= x) lo = mid + 1; else hi = mid;
-  }
-  return (uint32_t)lo;
-}
 
 // ---------------------------------------------------------------------------
 // Bit-packed tiles: the one design of bitunpack (decode.cu) and fused_sparse
@@ -217,9 +195,167 @@ inline dim3 tile_grid(long long f, long long g) {
 
 inline size_t tile_smem(int width) { return (size_t)kTileGroups * width * sizeof(uint32_t); }
 
-// Launch-side test for the kernels' 16-byte vector accesses.
-inline bool aligned16(const void* p) {
+// Whether a pointer allows 16-byte vector accesses.
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---------------------------------------------------------------------------
+// Bucket tiles: the one design of bucketize (bucketize.cu) and fused_gen
+// (fused.cu), which differ only in how a thread's values arrive (f32 loads,
+// or byte-split words decoded in registers) and what leaves (the counts, or
+// their SigridHash).
+//
+// Block (x, f) counts kBucketThreads * kBucketValues consecutive values of
+// feature f against the feature's m sorted, NaN-free boundaries; thread t
+// takes values [V t, V t + V) of the block's range (V = kBucketValues).  Each
+// thread issues its value loads first and its share of the boundary loads
+// next, so the two trips to device memory overlap; the block stores the
+// boundaries in shared memory as a breadth-first (Eytzinger) tree and
+// synchronises once.  The search is branchless and of fixed trip count, the
+// same for every lane, with a thread's V values in lockstep (V independent
+// shared loads in flight per step).  Step l reads level l of the tree, one
+// contiguous range: the first five levels share one 128-byte row, and the
+// lanes' probes of a deeper level spread over the banks (in sorted order,
+// a warp's probes of one step of a binary search all fall in one bank).
+//
+// The tree: the first m - 1 boundaries as a complete binary tree of
+// N = 2^L - 1 nodes, L = ceil(log2 m), node k's children at 2k + 1 and
+// 2k + 2, in-order positions m - 1 .. N - 1 holding NaN (never <= x); slot N
+// holds the last boundary.  After L steps of k = 2k + 1 + (s[k] <= x),
+// k - N counts the tree's boundaries <= x, and the last boundary adds one if
+// it is <= x: ceil(log2(m + 1)) probes when m is a power of two, one more
+// otherwise.
+
+constexpr int kBucketThreads = 256;
+constexpr int kBucketValues = 4;  // per thread
+
+// 1 if b <= x, else 0, with subnormal operands read as zero (.ftz) and NaN
+// never <= anything: the reference's compare of flushed boundaries and
+// values (XLA on the CPU, like the TPU, treats subnormal inputs as zero; C6).
+// Flushing keeps sorted boundaries sorted, so the counts stay a prefix.
+__device__ __forceinline__ uint32_t le_ftz(float b, float x) {
+  uint32_t r;
+  asm("{\n.reg .pred p;\nsetp.le.ftz.f32 p, %1, %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "f"(b), "f"(x));
+  return r;
+}
+
+// L = ceil(log2 m): the depth of the tree over the first m - 1 boundaries.
+__host__ __device__ __forceinline__ int tree_levels(int m) {
+#ifdef __CUDA_ARCH__
+  return m > 1 ? 32 - __clz(m - 1) : 0;
+#else
+  return m > 1 ? 32 - __builtin_clz(m - 1) : 0;
+#endif
+}
+
+// Slot of in-order position i in the breadth-first layout of a complete tree
+// of 2^L - 1 nodes: i + 1 = (2j + 1) 2^t puts it j-th on level L - 1 - t.
+__device__ __forceinline__ int tree_slot(int i, int levels) {
+  const int t = __ffs(i + 1) - 1;
+  return (1 << (levels - 1 - t)) - 1 + ((i + 1) >> (t + 1));
+}
+
+// The block: the m boundaries at b into the tree s (the caller
+// synchronises).  16-byte loads where the row is 16-byte aligned, else 4-byte
+// loads; each thread has up to 4 loads in flight before it stores.
+__device__ __forceinline__ void stage_tree(float* s, const float* __restrict__ b, int m,
+                                           int levels) {
+  const int nodes = (1 << levels) - 1;
+  const int t = threadIdx.x, threads = blockDim.x;
+  auto put = [&](int i, float v) { s[i < m - 1 ? tree_slot(i, levels) : nodes] = v; };
+  if (aligned16(b) && (m & 3) == 0) {
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    const int quads = m >> 2;
+    for (int q0 = t; q0 < quads; q0 += 4 * threads) {
+      float4 r[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (q0 + u * threads < quads) r[u] = __ldg(b4 + q0 + u * threads);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = 4 * (q0 + u * threads);
+        if (i < m) {
+          put(i, r[u].x);
+          put(i + 1, r[u].y);
+          put(i + 2, r[u].z);
+          put(i + 3, r[u].w);
+        }
+      }
+    }
+  } else {
+    for (int i0 = t; i0 < m; i0 += 4 * threads) {
+      float r[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u * threads < m) r[u] = __ldg(b + i0 + u * threads);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u * threads < m) put(i0 + u * threads, r[u]);
+    }
+  }
+  for (int i = max(m - 1, 0) + t; i < nodes; i += threads)
+    s[tree_slot(i, levels)] = __int_as_float(0x7fffffff);  // NaN
+}
+
+// #{j < m : b[j] <= x} for a thread's kBucketValues values at once over the
+// staged tree s (C1: NaN counts nothing; +inf counts every boundary, +inf
+// padding included).
+__device__ __forceinline__ void bucket_counts(const float* s, int m, int levels,
+                                              const float (&x)[kBucketValues],
+                                              uint32_t (&count)[kBucketValues]) {
+  constexpr int V = kBucketValues;
+  const uint32_t nodes = (1u << levels) - 1;
+  const float last = m > 0 ? s[nodes] : __int_as_float(0x7fffffff);
+  uint32_t k[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) k[v] = 0;
+  for (int l = 0; l < levels; ++l) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) k[v] = 2 * k[v] + 1 + le_ftz(s[k[v]], x[v]);
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) count[v] = k[v] - nodes + le_ftz(last, x[v]);
+}
+
+// The body of bucketize_kernel and fused_gen_kernel over n values per
+// feature.  Grid bucket_grid(F, n), kBucketThreads threads, dynamic shared
+// memory bucket_smem.  `load(k, x)` reads values k .. k + V - 1 of the
+// block's feature into x (called only for k < n; the loader masks a ragged
+// tail), `store(k, count)` writes their results.
+template <class Load, class Store>
+__device__ __forceinline__ void bucket_tile(const float* __restrict__ bounds, int m,
+                                            long long n, Load load, Store store) {
+  constexpr int V = kBucketValues;
+  extern __shared__ __align__(128) uint32_t s[];
+  const long long k = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  const bool live = k < n;
+  float x[V];
+  if (live) load(k, x);
+  const int levels = tree_levels(m);
+  float* tree = reinterpret_cast<float*>(s);
+  stage_tree(tree, bounds + (long long)blockIdx.y * m, m, levels);
+  __syncthreads();
+  if (!live) return;
+  uint32_t count[V];
+  bucket_counts(tree, m, levels, x, count);
+  store(k, count);
+}
+
+inline dim3 bucket_grid(long long f, long long n) {
+  constexpr long long per_block = (long long)kBucketThreads * kBucketValues;
+  return dim3((unsigned)((n + per_block - 1) / per_block), (unsigned)f);
+}
+
+// Lets `kernel` take the shared memory of the tree over m boundaries, 2^L
+// floats (above 48 KB only after this call); the bindings check the size.
+template <class Kernel>
+inline cudaError_t bucket_smem(Kernel kernel, int m, size_t* bytes) {
+  *bytes = m > 0 ? sizeof(float) << tree_levels(m) : 0;
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
 }  // namespace presto

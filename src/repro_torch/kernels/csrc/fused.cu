@@ -44,34 +44,35 @@ __global__ void fused_dense_kernel(const uint4* __restrict__ words,
 // fused_gen — replaces repro/kernels/fused.py:fused_gen_pallas.
 // (F, G, 4) plane words + (F, m) sorted boundaries (+inf padded) + (F, 2)
 // [seed, max] -> (F, G, 4) int32.
-// Bound by bytes at these sizes: 16 B in and 16 B out per group plus the
-// boundaries once per block; the TPU's m compares per value become a binary
-// search of log2(m) steps.  Design: one block per (tile of groups, feature);
-// the block stages its feature's boundaries in dynamic shared memory (4 KB at
-// m=1024, 16 KB at m=4096), then one thread per group decodes its 4 values,
-// searches, hashes and stores 16 bytes.
-constexpr int kGenThreads = 256;
+// Bound by latency at the paths' sizes: 32 B per group plus the boundaries
+// once per block are under half a microsecond of bytes, while each value
+// waits on two trips to device memory and a search of log2(m) dependent
+// shared loads.  Design: the bucket tiles of common.cuh (the TPU's m compares
+// per value become a search of an Eytzinger tree); thread t decodes group
+// t's 4 values from its one 16-byte load, counts them in lockstep, hashes
+// them and stores 16 bytes.  The block reads its feature's [seed, max] once.
 
 __global__ void fused_gen_kernel(const uint4* __restrict__ words,
                                  const float* __restrict__ bounds,
-                                 const uint32_t* __restrict__ params,
-                                 int4* __restrict__ out,
+                                 const uint32_t* __restrict__ params, uint4* __restrict__ out,
                                  long long groups_per_feature, int m) {
-  extern __shared__ float sb[];
   const int f = blockIdx.y;
-  const float* b = bounds + (long long)f * m;
-  for (int k = threadIdx.x; k < m; k += blockDim.x) sb[k] = flush_denormal(b[k]);
-  __syncthreads();
-  const long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (g >= groups_per_feature) return;
   const uint32_t seed = __ldg(params + 2 * f);
   const uint32_t d = __ldg(params + 2 * f + 1);
-  const long long i = (long long)f * groups_per_feature + g;
-  const uint4 p = words[i];
-  out[i] = make_int4((int)sigridhash(bucket(sb, m, bytesplit_value<0>(p)), seed, d),
-                     (int)sigridhash(bucket(sb, m, bytesplit_value<1>(p)), seed, d),
-                     (int)sigridhash(bucket(sb, m, bytesplit_value<2>(p)), seed, d),
-                     (int)sigridhash(bucket(sb, m, bytesplit_value<3>(p)), seed, d));
+  const long long first = (long long)f * groups_per_feature;
+  bucket_tile(
+      bounds, m, 4 * groups_per_feature,
+      [&](long long k, float(&x)[kBucketValues]) {
+        const uint4 p = __ldg(words + first + k / 4);
+        x[0] = bytesplit_value<0>(p);
+        x[1] = bytesplit_value<1>(p);
+        x[2] = bytesplit_value<2>(p);
+        x[3] = bytesplit_value<3>(p);
+      },
+      [&](long long k, const uint32_t(&c)[kBucketValues]) {
+        out[first + k / 4] = make_uint4(sigridhash(c[0], seed, d), sigridhash(c[1], seed, d),
+                                        sigridhash(c[2], seed, d), sigridhash(c[3], seed, d));
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -110,15 +111,11 @@ int presto_fused_sparse(const void* words, const void* params, void* out, long l
 
 int presto_fused_gen(const void* words, const void* bounds, const void* params, void* out,
                      long long f, long long g, int m, void* stream) {
-  const size_t smem = (size_t)m * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_gen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)((g + kGenThreads - 1) / kGenThreads), (unsigned)f);
-  fused_gen_kernel<<<grid, kGenThreads, smem, (cudaStream_t)stream>>>(
-      (const uint4*)words, (const float*)bounds, (const uint32_t*)params, (int4*)out, g, m);
+  size_t smem;
+  const cudaError_t err = bucket_smem(fused_gen_kernel, m, &smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_gen_kernel<<<bucket_grid(f, 4 * g), kBucketThreads, smem, (cudaStream_t)stream>>>(
+      (const uint4*)words, (const float*)bounds, (const uint32_t*)params, (uint4*)out, g, m);
   return (int)cudaGetLastError();
 }
 
