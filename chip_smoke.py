@@ -11,18 +11,27 @@ card (adversarial words at the test shapes and at the rm2 and rm5 shapes,
 unaligned views, plus the pinned NaN, +inf and subnormal edge cases; the
 bit-packed kernels at every width 1..32, ragged G, the megabatch-2 shape and
 views 4 bytes past 16-byte alignment; the bucket kernels at rm2 (megabatch 1
-and 2), rm4 and rm5, a ragged R, unpadded boundary counts and offset views),
-then
-drives three paths at full RM2 width over one 8-partition
-``PartitionedStore``, each with the launch counters set to 0 just before it
-and read just after:
+and 2), rm4 and rm5, a ragged R, unpadded boundary counts, offset views and
+boundary counts searched in device memory), then drives these paths at full
+RM2 width, each with the launch counters set to 0 just before it and read
+just after:
 
-* ``presto`` (the fused kernels): ``produce_stream`` over pids 0-3 at
-  megabatch 1 and 4-7 at megabatch 2, every batch held against the port's
-  plain path (the same engine on the CPU);
+* ``presto`` (the fused kernels): ``produce_stream`` over pids 0-3 of one
+  8-partition ``PartitionedStore`` at megabatch 1 and 4-7 at megabatch 2,
+  every batch held against the port's plain path (the same engine on the
+  CPU);
 * ``disagg`` with ``kernel_mode="unfused"`` (the five standalone kernels):
   pids 0-3 at megabatch 1;
 * ``hybrid`` (the cost model's placement): pids 4-7 at megabatch 2;
+* dedup (RecD): a store whose every 4 rows share one sparse block, 4
+  partitions under presto (megabatch 1 and 2), unfused (1) and hybrid (2),
+  every batch held against the inflated partition's fused batch and the
+  plain path;
+* training: three reduced-width DLRM steps on the card against the CPU
+  from the same weights, then the full RM2 DLRM (63 tables of 500,000 x 128
+  floats, ~61 GiB with AdamW, freed after) for 8 train steps on the presto
+  path's 8 batches and 3 ingest steps (pages in, the fused kernels inside
+  the step) on one partition, whose loss must fall;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -31,9 +40,11 @@ kernel through its own entry point and is counted and timed apart as
 breakdown (the paper's Fig. 5/12), per-kernel times beside their bounds
 (CUDA-event times, each kernel's device time from the profiler, and the
 device time of one copy of its input as the floor a launch of that size
-meets; the latency-bound rows also at the megabatch-2 and rm5 shapes), the
-presto path's time split, one JSON line describing the kernels,
-the card's name and power limit, and, as its last line,
+meets; the latency-bound rows also at the megabatch-2 and rm5 shapes, the
+bucket kernels also at m = 32769 and 65536), the presto path's time split,
+each path's device busy time per partition, the trainer's step time,
+device split, samples/s and peak memory, one JSON line describing the
+kernels, the card's name and power limit, and, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Without a CUDA device it exits 1 at once.
 """
@@ -123,8 +134,15 @@ BUCKETIZE_CASES = ((3, 5, 32), (3, 1500, 32), (3, 5, 600), (3, 1500, 600),
 # boundaries of both, where every access goes by 4 bytes
 UNPADDED_M = (1, 3, 127, 129)
 BUCKET_OFFSET_CASES = ((21, 8192, 1024), (3, 1500, 600))  # (F, R, m)
+# boundary counts whose tree does not fit in shared memory, searched in
+# device memory (ROADMAP C8), given unpadded: the first such m, a padded one,
+# and one at a ragged R
+DEVICE_SEARCH_CASES = ((3, 1500, 32769), (3, 1500, 65536), (4, 1028, 40001))  # (F, R, m)
 LOGNORM_CASES = ((3, 5, 7), (1027,), (504, 8192))
 MAIN_CONFIG, MAIN_ROWS = "rm2", None  # full width, 8192 rows per partition
+DEDUP_FACTOR = 4  # rows per shared sparse block of the dedup store
+TRAIN_LR = (3e-4, 2, 100)  # peak, warmup and total steps of the schedule
+TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # record_function ranges of the port
 
 
 class SmokeFailure(RuntimeError):
@@ -230,6 +248,11 @@ def phase_kernels(rng, dev, errs: dict) -> None:
     for f, r, m in BUCKET_OFFSET_CASES:
         w, p = words(rng, (f, r // 4, 4), dev), params(f)
         b = offset_copy(ops.pad_boundaries(sorted_bounds(rng, f, m, dev), dev))
+        hold("fused_gen", fused.fused_gen(w, b, p), ref.fused_gen(w, b, p), errs)
+        cases += 1
+    for f, r, m in DEVICE_SEARCH_CASES:
+        w, p = words(rng, (f, r // 4, 4), dev), params(f)
+        b = sorted_bounds(rng, f, m, dev)
         hold("fused_gen", fused.fused_gen(w, b, p), ref.fused_gen(w, b, p), errs)
         cases += 1
 
@@ -341,6 +364,12 @@ def phase_standalone_kernels(rng, dev, errs: dict) -> None:
         for bb in (b, offset_copy(b)):
             hold("bucketize", bucketize.bucketize(x, bb), ref.bucketize(x, bb), errs)
             cases += 1
+    for f, r, m in DEVICE_SEARCH_CASES:
+        x = words(rng, (f, r), dev).view(torch.float32)
+        b = sorted_bounds(rng, f, m, dev)
+        x[:, :64] = b[:, ::max(m // 64, 1)][:, :64]  # values on boundaries
+        hold("bucketize", bucketize.bucketize(x, b), ref.bucketize(x, b), errs)
+        cases += 1
     for shape in LOGNORM_CASES:
         x = words(rng, shape, dev).view(torch.float32)
         hold("lognorm", lognorm.lognorm(x), ref.lognorm(x), errs)
@@ -500,6 +529,267 @@ def phase_host_paths(spec, store, fused_batches: dict) -> dict:
     return engines, by_path
 
 
+def phase_dedup(dev):
+    """Sample-level dedup (RecD) at full rm2 width: a store whose every 4
+    rows share one sparse block (8,192 rows, u = 2,048 unique blocks), four
+    partitions through ``produce_stream`` under presto at megabatch 1 and 2,
+    unfused at 1 and hybrid at 2.  Every batch must equal, bit for bit
+    (dense to DENSE_TOL), the fused batch of its partition inflated to the
+    classic layout, on the card, and the plain path on the CPU.  Returns the
+    engines, the launch counts by path and megabatch, and one partition's
+    staged dedup pages on the card."""
+    import dataclasses
+
+    from repro_torch.core.preprocess import pages_from_partition
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.columnar import inflate_partition
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.data.synth import RM_CONFIGS, SyntheticRecSysSource
+    from repro_torch.kernels import fused
+
+    cfg = dataclasses.replace(RM_CONFIGS[MAIN_CONFIG], dup_factor=DEDUP_FACTOR)
+    src = SyntheticRecSysSource(cfg, rows=MAIN_ROWS, seed=0)
+    spec = TransformSpec.from_source(src)
+    store = PartitionedStore(4, num_devices=4, source=src)
+    rows, u = src.rows, src.schema.unique_rows
+    plain = TorchPreStoEngine(spec, device="cpu")
+    want_plain = {pid: plain.produce_batch(store, pid) for pid in range(4)}
+    presto = TorchPreStoEngine(spec)
+    want_inflated = {}
+    for pid in range(4):
+        flat = pages_from_partition(inflate_partition(store.read(pid)), spec)
+        check("sparse_refs" not in flat, "inflated pages carry refs")
+        want_inflated[pid] = presto.preprocess_local(presto.put_pages(presto.pin_pages(flat)))
+    print(f"dedup: {MAIN_CONFIG} rows={rows}, dup_factor={DEDUP_FACTOR}, u={u} unique blocks "
+          f"per partition; stored {store.read(0).nbytes()} bytes per partition against "
+          f"{inflate_partition(store.read(0)).nbytes()} inflated")
+    paths = (("presto", {}, 1), ("presto", {}, 2),
+             ("unfused", dict(placement="disagg", kernel_mode="unfused"), 1),
+             ("hybrid", dict(placement="hybrid"), 2))
+    engines, by_path = {"presto": presto}, {}
+    for name, kwargs, k in paths:
+        engine = engines.setdefault(name, TorchPreStoEngine(spec, **kwargs))
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        out = list(engine.produce_stream(store, range(4), megabatch=k))
+        dt = time.perf_counter() - t0
+        by_path.setdefault(name, {})[k] = dict(fused.LAUNCHES)
+        check([pid for pid, _ in out] == list(range(4)), f"dedup {name}: pids out of order")
+        for pid, mb in out:
+            for key, v in want_plain[pid].items():
+                got = mb[key]
+                check(got.shape == v.shape and got.dtype == v.dtype, f"dedup {key} shape/dtype")
+                if key == "dense":
+                    torch.testing.assert_close(got.cpu(), v, **DENSE_TOL)
+                    torch.testing.assert_close(got, want_inflated[pid][key], rtol=0, atol=0,
+                                               equal_nan=True)
+                else:
+                    check(torch.equal(got.cpu(), v), f"dedup {name} pid {pid} {key} != plain")
+                    check(torch.equal(got, want_inflated[pid][key]),
+                          f"dedup {name} pid {pid} {key} != the inflated partition's batch")
+        print(f"dedup path {name}: megabatch {k}, launches {by_path[name][k]}, "
+              f"{len(out) * rows / dt:.1f} samples/s (wall clock); 4 batches equal the "
+              f"inflated partitions' fused batches and the plain path")
+    for name, engine in engines.items():
+        check_launches(f"dedup {name}", engine.lowered_plan, by_path[name])
+    # one partition's staged pages as a megabatch of 1, for profile_transform
+    pages = presto.put_pages(presto.pin_pages(presto.stage_megabatch(store, [0])))
+    check(pages["sparse_words"].shape[2] == u * spec.cfg.max_sparse_len // 32
+          and tuple(pages["sparse_refs"].shape) == (1, rows), "dedup pages not at unique geometry")
+    return engines, by_path, pages
+
+
+def train_config():
+    """The model phase_train drives at full width: rm2 (63 tables of
+    500,000 x 128, the paper's MLPs)."""
+    from repro_torch.configs.registry import get_recsys
+
+    return get_recsys(MAIN_CONFIG)
+
+
+def train_setup(cfg, model):
+    """AdamW over TRAIN_LR's schedule, the state around `model`, and the
+    DLRM's loss."""
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import adamw, init_state, warmup_cosine
+
+    opt = adamw(warmup_cosine(*TRAIN_LR))
+    return opt, init_state(model, opt), (lambda m, b: RS.loss_fn(m, b, cfg))
+
+
+def phase_train_parity(dev) -> None:
+    """The DLRM at reduced width (rm2's MLPs, tables of 1,024 rows) from the
+    same weights and the same batches: three train steps on the card and on
+    the CPU agree to the tolerances of tests/test_torch_train.py (loss rtol
+    1e-5; parameters atol lr/100 but for a 1e-5 share of each leaf, and
+    within 2 lr per step everywhere)."""
+    from repro_torch.configs.registry import get_recsys
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.data.synth import SyntheticRecSysSource
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products, as on the CPU
+    cfg = get_recsys(MAIN_CONFIG, reduced=True)
+    src = SyntheticRecSysSource(cfg.data, seed=0)
+    cpu_engine = TorchPreStoEngine(TransformSpec.from_source(src), device="cpu")
+    store = PartitionedStore(3, num_devices=1, source=src)
+    batches = [cpu_engine.produce_batch(store, pid) for pid in range(3)]
+    tree = RS.params_to_numpy(RS.init_params(torch.Generator().manual_seed(1), cfg, "cpu"))
+    runs = {}
+    for device in ("cpu", dev):
+        opt, state, loss = train_setup(cfg, RS.params_from_numpy(tree, cfg, device))
+        step = make_train_step(loss, opt)
+        losses = []
+        for mb in batches:
+            state, metrics = step(state, {k: v.to(device) for k, v in mb.items()})
+            losses.append(float(metrics["loss"]))
+        runs[str(device)] = (losses, RS.params_to_numpy(state["params"]))
+    (cpu_losses, cpu_params), (losses, params) = runs["cpu"], runs[str(dev)]
+    check(all(np.isfinite(losses)), f"reduced-width losses {losses}")
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
+    atol, worst = TRAIN_LR[0] / 100, 0.0
+    for group, want in cpu_params.items():
+        leaves = want.items() if isinstance(want, dict) else [("", want)]
+        for name, w in leaves:
+            got = params[group][name] if name else params[group]
+            d = np.abs(got - w)
+            off = int((d > atol).sum())
+            check(off <= max(1, int(1e-5 * d.size)) and d.max() <= 2 * TRAIN_LR[0] * 3,
+                  f"reduced-width {group}.{name}: {off} of {d.size} past {atol}, max {d.max()}")
+            worst = max(worst, float(d.max()))
+    print(f"train parity: {cfg.name} (tables {cfg.n_tables} x {cfg.data.embedding_rows} x "
+          f"{cfg.emb_dim}), 3 steps of {src.rows} rows on {dev} and on the CPU from the same "
+          f"weights: losses {losses} against {cpu_losses} (rtol 1e-5), parameters within "
+          f"lr/100 but for noise (largest difference {worst:.3g})")
+
+
+def phase_train(dev, batches: list, engine, store) -> dict:
+    """The DLRM at full width on the card: 8 ``make_train_step`` steps with
+    AdamW on the main path's 8 delivered batches, then 3
+    ``make_train_step_with_ingest`` steps on one staged partition (the
+    fused kernels inside the step).  The loss must be finite and fall on the
+    repeated partition.  Prints the step time (CUDA events, median), the
+    profiler's device time split, samples/s and peak memory.  Frees the
+    model, its gradients and the optimizer's moments before it returns the
+    ingest steps' launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fused
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import make_train_step, make_train_step_with_ingest
+
+    cfg = train_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = RS.init_params(torch.Generator().manual_seed(0), cfg, dev)
+    opt, state, loss = train_setup(cfg, model)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train: {cfg.name}, {n_params} parameters ({n_params * 4} bytes; tables "
+          f"{tuple(model.tables.shape)}), drawn with the AdamW moments allocated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    step = make_train_step(loss, opt)
+    ms, losses = [], []
+    for i, mb in enumerate(batches):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if i == len(batches) - 1:  # the last step under the profiler
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, metrics = step(state, mb)
+                torch.cuda.synchronize()
+        else:
+            a.record()
+            state, metrics = step(state, mb)
+            b.record()
+            ms.append((a, b))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in ms]
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"full-width train losses {losses}")
+    step_ms = statistics.median(times)
+    rows = batches[0]["labels"].shape[0]
+    print(f"train: {len(batches)} steps of {rows} rows, losses {losses}")
+    print(f"train: step time {step_ms:.3f} ms (CUDA events, median of the {len(times)} "
+          f"unprofiled steps; all {[round(t, 3) for t in times]}), {rows / step_ms * 1e3:.1f} "
+          f"training samples/s; card {card_line()}")
+    busy_ms = train_split(prof)
+    if busy_ms is not None:
+        print(f"train: device busy {busy_ms:.3f} ms of the {step_ms:.3f} ms median step, idle "
+              f"share {max(0.0, 1 - busy_ms / step_ms):.1%} (profiled step against unprofiled "
+              f"steps)")
+
+    fused.reset_launches()
+    ingest = make_train_step_with_ingest(engine, loss, opt)
+    pages = engine.put_pages(engine.pin_pages(engine.stage_partition(store, 0)))
+    ingest_losses, ingest_ms = [], []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, metrics = ingest(state, pages)
+        b.record()
+        ingest_losses.append(metrics["loss"])
+        ingest_ms.append((a, b))
+    torch.cuda.synchronize()
+    ingest_losses = [float(x) for x in ingest_losses]
+    launches = dict(fused.LAUNCHES)
+    check_launches("ingest", engine.lowered_plan, {1: launches})
+    check(all(np.isfinite(ingest_losses)) and ingest_losses[-1] < ingest_losses[0],
+          f"ingest losses {ingest_losses} do not fall on the repeated partition")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train ingest: 3 steps on pid 0's staged pages, losses {ingest_losses} (falling), "
+          f"step times {[round(a.elapsed_time(b), 3) for a, b in ingest_ms]} ms, launches "
+          f"{launches}")
+    print(f"train: peak memory {peak} bytes ({peak / 2**30:.2f} GiB) of "
+          f"{torch.cuda.get_device_properties(dev).total_memory} (max_memory_allocated); "
+          f"card {card_line()}")
+    del model, state, opt, step, ingest, metrics, pages
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 4 << 30, "the trainer's memory was not freed")
+    return {1: launches}
+
+
+def train_split(prof) -> float | None:
+    """One train step's device time from the profiler: the embedding bag
+    forward (``dlrm.embedding_bag``) and backward, the optimizer
+    (``adamw``: global norm, clip and update) and the rest (the MLPs, the
+    interaction, the loss, zeroing); returns the busy ms (None if the
+    profiler saw no device time)."""
+    from torch.autograd import DeviceType
+
+    rows = prof.key_averages()
+    # the record_function ranges also show as spans on the device's timeline
+    kernels = [(e.key, e.count, e.device_time_total) for e in rows
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+               and e.key not in TRAIN_RANGES]
+    if not kernels:
+        print("train split: the profiler saw no device time (not measured)")
+        return None
+    busy = sum(t for _, _, t in kernels)
+
+    def part(match):
+        return sum(e.device_time_total for e in rows
+                   if e.device_type == DeviceType.CPU and match(e.key))
+
+    emb_f = part(lambda k: k == "dlrm.embedding_bag")
+    # the autograd engine's span of the node holds the node's own span
+    emb_b = part(lambda k: k.startswith("autograd::engine::evaluate_function: "
+                                        "EmbeddingBagBackward"))
+    opt = part(lambda k: k == "adamw")
+    rest = busy - emb_f - emb_b - opt
+    print(f"train split (profiler, one step): device busy {busy / 1e3:.3f} ms; embedding "
+          f"forward {emb_f / 1e3:.3f} ms, embedding backward {emb_b / 1e3:.3f} ms, MLPs + "
+          f"interaction + loss {rest / 1e3:.3f} ms, optimizer {opt / 1e3:.3f} ms")
+    for key, count, t in sorted(kernels, key=lambda r: -r[2])[:12]:
+        print(f"train split:   {t / 1e3:9.3f} ms  x{count}  {key[:90]}")
+    return busy / 1e3
+
+
 def phase_breakdown(engines: dict, store) -> None:
     """The paper's per-stage latency breakdown (Fig. 5/12) at rm2 on the
     card: ``time_stages`` of the unfused plan (best of 5, synchronised
@@ -646,6 +936,8 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
     del pages2
     gen_w5, bounds5, gp5 = rm5_gen_inputs(dev)
     decoded_gen5 = ref.bytesplit_decode_grouped(gen_w5).reshape(gen_w5.shape[0], -1)
+    wide_rng = np.random.default_rng(3)
+    wide_bounds = {m: sorted_bounds(wide_rng, gen_w.shape[0], m, dev) for m in (32769, 65536)}
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > L2
 
     def nvals(t, per_group):
@@ -734,6 +1026,14 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
             first=gen_counts)),
         ("bucketize", "7 K=2", 2, bucketize_row(decoded_gen2, bounds)),
         ("bucketize", "7b rm5", "not on the paths", bucketize_row(decoded_gen5, bounds5)),
+    ) + tuple(
+        # the device-memory search (C8) at rm2's gen shapes, m unpadded
+        (name, f"{row} m={m}", "not on the paths", make(m))
+        for m in (32769, 65536)
+        for name, row, make in (
+            ("fused_gen", "3c", lambda m: gen_row(gen_w, wide_bounds[m], gp, decoded_gen)),
+            ("bucketize", "7c", lambda m: bucketize_row(decoded_gen, wide_bounds[m])),
+        )
     )
 
     def at_k(name, k):
@@ -827,12 +1127,16 @@ def profile_transform(path: str, engine, dev_pages) -> None:
 
     engine.preprocess_megabatch(dev_pages)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.preprocess_megabatch(dev_pages)
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    if not rows:
+    for _ in range(3):  # the profiler now and then returns an empty session
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.preprocess_megabatch(dev_pages)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        if rows:
+            break
+        print(f"profile {path}: a profiler session held no device records; taking it again")
+    else:
         print(f"profile {path}: the profiler saw no device time (not measured)")
         return
     total_us = sum(t for _, _, t in rows)
@@ -866,8 +1170,16 @@ def main() -> int:
     engine, store, launches, fused_batches = phase_main_path(dev)
     torch.cuda.synchronize()
     engines, by_path = phase_host_paths(engine.spec, store, fused_batches)
+    train_batches = [fused_batches[pid] for pid in range(8)]
     del fused_batches
-    by_path = {"presto": launches, **by_path}
+    dedup_engines, dedup_by_path, dedup_pages = phase_dedup(dev)
+    torch.cuda.synchronize()
+    phase_train_parity(dev)
+    ingest_launches = phase_train(dev, train_batches, engine, store)
+    del train_batches
+    by_path = {"presto": launches, **by_path,
+               **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
+               "ingest": ingest_launches}
     totals = {n: sum(path_totals(by_k)[n] for by_k in by_path.values()) for n in launches[1]}
     for name, n in totals.items():
         check(n > 0, f"{name} was never launched")
@@ -876,6 +1188,8 @@ def main() -> int:
     phase_breakdown(engines, store)
     torch.cuda.synchronize()
     kernels = phase_timings(engines, store, dev, errs, by_path)
+    for name, e in dedup_engines.items():
+        profile_transform(f"dedup {name}", e, dedup_pages)
     torch.cuda.synchronize()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

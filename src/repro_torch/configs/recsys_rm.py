@@ -1,16 +1,20 @@
-"""RM1-RM5 — the paper's own RecSys data configurations (Table I).
+"""RM1-RM5 — the paper's own RecSys models (Table I).
 
-RM1 = public Criteo scale; RM2-5 = production-scale synthetics.  The port
-carries the data side only: the model configurations arrive with the
-training slice.  REDUCED variants (small bucket sets, tiny id spaces and
-tables) run the smoke tests on the CPU.
+RM1 = public Criteo scale; RM2-5 = production-scale synthetics.  ``CONFIGS``
+are the full models (``RecSysConfig``, with their data configs under
+``.data``); ``REDUCED`` variants (small bucket sets, tiny id spaces and
+tables) run the tests on the CPU.
 """
 
 import dataclasses
 
 from repro_torch.data.synth import RM_CONFIGS, RMDataConfig
+from repro_torch.models.recsys import RecSysConfig
 
-CONFIGS = {f"rm{i}": RM_CONFIGS[f"rm{i}"] for i in range(1, 6)}
+CONFIGS = {
+    f"rm{i}": RecSysConfig(name=f"rm{i}", data=RM_CONFIGS[f"rm{i}"])
+    for i in range(1, 6)
+}
 
 
 def reduced_data(cfg: RMDataConfig, rows: int = 256) -> RMDataConfig:
@@ -24,4 +28,7 @@ def reduced_data(cfg: RMDataConfig, rows: int = 256) -> RMDataConfig:
     )
 
 
-REDUCED = {name: reduced_data(cfg) for name, cfg in CONFIGS.items()}
+REDUCED = {
+    f"rm{i}": RecSysConfig(name=f"rm{i}-smoke", data=reduced_data(RM_CONFIGS[f"rm{i}"]))
+    for i in range(1, 6)
+}

@@ -18,6 +18,7 @@ from repro_torch.core.opgraph import (
     LoweredPlan,
     build_transform_graph,
     lower,
+    prepare_env,
     resolve_placements,
 )
 from repro_torch.core.spec import TransformSpec
@@ -39,9 +40,11 @@ class ShapeDtype(NamedTuple):
 def pages_from_partition(part: Partition, spec: TransformSpec) -> Dict[str, np.ndarray]:
     """Stack per-column pages into the grouped uint32 arrays the kernels
     consume.  Dedup partitions (``schema.dup_factor > 1``) stage their
-    sparse/length pages at unique-block geometry plus a ``sparse_refs``
-    vector, exactly as the JAX package does; the Transform of such pages is
-    a later slice (``execute_plan`` raises)."""
+    sparse/length pages at unique-block geometry — each shared block's
+    encoded words go to the device once — plus a ``sparse_refs`` vector
+    mapping the ``rows`` logical samples back to blocks, exactly as the JAX
+    package does; the Transform gather-expands after hashing
+    (``execute_plan``)."""
     cfg = spec.cfg
     rows = part.schema.rows
     u = part.schema.unique_rows  # == rows for classic partitions
@@ -88,8 +91,14 @@ def flatten_megabatch(stacked: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
     out: Dict[str, torch.Tensor] = {}
     for name, v in stacked.items():
         if name == "sparse_refs":
-            raise NotImplementedError("dedup pages (sparse_refs): later slice")
-        if v.dim() == 2:  # label_words: (K, rows) -> (K*rows,)
+            # (K, rows) block refs -> (K*rows,) into the K*u flattened unique
+            # blocks: partition k's blocks land at offset k*u once the
+            # sparse/length pages fold their own row-group axes below
+            k = v.shape[0]
+            u = stacked["length_words"].shape[2] * 32
+            off = torch.arange(k, dtype=v.dtype, device=v.device)[:, None] * u
+            out[name] = (v + off).reshape(-1)
+        elif v.dim() == 2:  # label_words: (K, rows) -> (K*rows,)
             out[name] = v.reshape(-1)
         else:  # (K, F, G, w) -> (F, K*G, w)
             k, f, g, w = v.shape
@@ -102,10 +111,32 @@ def flatten_megabatch(stacked: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
 
 
 def execute_plan(plan: LoweredPlan, pages: Dict[str, torch.Tensor]) -> MiniBatch:
-    """Run a lowered plan over staged page tensors."""
-    if "sparse_refs" in pages:
-        raise NotImplementedError("dedup pages (sparse_refs): later slice")
-    return plan.execute(pages)
+    """Run a lowered plan over staged page tensors, dedup-aware.
+
+    Classic pages run ``plan.execute`` untouched.  Dedup pages (carrying
+    ``sparse_refs``) run the sparse/length stages at unique-block geometry —
+    decode and SigridHash touch each shared block once — then gather-expand
+    ``sparse_hashed`` and ``lengths_i32`` through the refs on the pages'
+    device just before ``form_batch``.  Every sparse-chain operator is
+    per-value row-local, so transform-then-expand is bitwise identical to
+    expand-then-transform: the undeduped result, for fused, unfused and
+    hybrid lowerings alike."""
+    if "sparse_refs" not in pages:
+        return plan.execute(pages)
+    pages = dict(pages)
+    refs = pages.pop("sparse_refs")
+    L = plan.spec.cfg.max_sparse_len
+    env = prepare_env(pages, plan.gen_index)
+    for st in plan.stages:
+        if st.name == "form_batch":
+            sh = env["sparse_hashed"]  # (n_sparse, u*L) at unique geometry
+            s, ul = sh.shape
+            env["sparse_hashed"] = (
+                sh.reshape(s, ul // L, L).index_select(1, refs).reshape(s, -1)
+            )
+            env["lengths_i32"] = env["lengths_i32"].index_select(0, refs)
+        env.update(zip(st.outputs, st.fn(*(env[k] for k in st.inputs))))
+    return env["minibatch"]
 
 
 def preprocess_pages(

@@ -165,6 +165,19 @@ class TorchPreStoEngine:
         return {k: v.to(self.device, non_blocking=True) for k, v in pages.items()}
 
     # -- Transform (device) -----------------------------------------------------
+    def preprocess_local(self, pages: Dict[str, torch.Tensor]) -> MiniBatch:
+        """One partition's staged pages (on the engine's device) -> its
+        mini-batch.  Dedup pages (carrying ``sparse_refs``) run the sparse
+        chain at unique-block geometry and gather-expand on the card
+        (``preprocess.execute_plan``), bitwise identical to classic pages."""
+        return execute_plan(self.lowered_plan, pages)
+
+    def preprocess_global(self, pages: Dict[str, torch.Tensor]) -> MiniBatch:
+        """The global batch of the reference's meshed path, on one device:
+        with no mesh the reference runs ``preprocess_local``, and so does
+        this engine (the meshed hops of host families are not ported)."""
+        return self.preprocess_local(pages)
+
     def preprocess_megabatch(self, stacked: Dict[str, torch.Tensor]) -> Tuple[MiniBatch, ...]:
         """Transform a leading-axis megabatch of K partitions in ONE launch
         per kernel, then split back into K per-partition mini-batches,

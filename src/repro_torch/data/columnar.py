@@ -1,8 +1,9 @@
 """Partitioned columnar format (Parquet-lite) for raw RecSys features.
 
 The port's own copy of the in-memory half of ``repro.data.columnar``: the
-schema, the encoded partition and its numpy encode/decode.  File I/O,
-checksums and ``inflate_partition`` are not carried yet.
+schema, the encoded partition, its numpy encode/decode and
+``inflate_partition``.  File I/O, checksums and ``block_fingerprints`` are
+not carried yet.
 
 A *partition* is a self-contained group of rows (one training mini-batch in
 the paper: 8,192 rows).  Partitions are mutually independent — the property
@@ -91,6 +92,17 @@ class PartitionSchema:
     def unique_rows(self) -> int:
         """Stored sparse-block count per partition (== rows when dup 1)."""
         return self.rows // self.dup_factor
+
+    def logical_schema(self) -> "PartitionSchema":
+        """The undeduped (dup_factor 1, no refs column) view of this schema —
+        the layout the same logical rows would occupy without dedup."""
+        if self.dup_factor == 1:
+            return self
+        return PartitionSchema(
+            rows=self.rows,
+            columns=tuple(c for c in self.columns if c.kind != "refs"),
+            dup_factor=1,
+        )
 
 
 @dataclasses.dataclass
@@ -261,3 +273,33 @@ def partition_refs(part: Partition) -> np.ndarray | None:
     if part.schema.dup_factor == 1:
         return None
     return part.columns[REFS_COLUMN].pages["refs"].astype(np.int64)
+
+
+def inflate_partition(part: Partition) -> Partition:
+    """Dedup form -> classic per-sample layout, bitwise faithful.
+
+    Decodes the unique sparse blocks, expands them through the refs page and
+    re-encodes at logical geometry under ``schema.logical_schema()`` — the
+    partition an undeduped source would have produced for the same rows
+    (bitpack(bitunpack(x)) is exact for in-width values).  Dense pages are
+    reused as-is."""
+    schema = part.schema
+    if schema.dup_factor == 1:
+        return part
+    dec = decode_partition_numpy(part)
+    logical = schema.logical_schema()
+    cols: Dict[str, EncodedColumn] = {}
+    for cs in logical.columns:
+        if cs.kind == "dense":
+            cols[cs.name] = EncodedColumn(cs, dict(part.columns[cs.name].pages))
+        else:
+            lens = dec["sparse_lengths"][cs.name].astype(np.int64)
+            flat = dec["sparse_values"][cs.name].astype(np.int64).reshape(-1)
+            pages = {"lengths": enc.bitpack(lens, cs.len_width)}
+            if cs.encoding == "dict":
+                pages["dict"] = np.arange(cs.dict_size, dtype=np.int32).view(np.uint32)
+                pages["values"] = enc.bitpack(flat, cs.code_width)
+            else:
+                pages["values"] = enc.bitpack(flat, cs.id_width)
+            cols[cs.name] = EncodedColumn(cs, pages)
+    return Partition(part.partition_id, logical, cols)

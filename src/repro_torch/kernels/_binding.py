@@ -72,16 +72,15 @@ def check_grid_y(f: int) -> None:
         raise ValueError(f"{f} features exceed the grid's y limit of 65535")
 
 
-def check_shared(m: int) -> None:
-    """Kernels that stage m f32 boundaries per block in shared memory, as a
-    tree of m rounded up to a power of two slots (``bucket_smem`` in
-    ``csrc/common.cuh``)."""
-    nbytes = 4 << (m - 1).bit_length() if m > 0 else 0
-    if nbytes > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{m} boundaries need {nbytes} bytes of shared memory, "
-            f"more than the {MAX_SHARED_BYTES} a block may use"
-        )
+def bucket_staged(m: int) -> bool:
+    """The mode of the bucket kernels for m boundaries: True where the tree
+    of m rounded up to a power of two f32 slots (``bucket_smem`` in
+    ``csrc/common.cuh``) fits in a block's shared memory (m <= 32768), else
+    False, and the kernels search the sorted boundaries in device memory.
+    Only an m the kernels' int cannot hold is refused."""
+    if not 0 <= m < 2**31:
+        raise ValueError(f"{m} boundaries: the bucket kernels take 0 <= m < 2**31")
+    return (4 << (m - 1).bit_length() if m > 0 else 0) <= MAX_SHARED_BYTES
 
 
 def launch(

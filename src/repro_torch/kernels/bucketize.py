@@ -16,13 +16,13 @@ from repro_torch.kernels._binding import (
     I64,
     LAUNCHES,
     P,
+    bucket_staged,
     check,
     check_grid_y,
-    check_shared,
     launch,
 )
 
-_SIGNATURES = {"presto_bucketize": (P, P, P, I64, I64, I32, P)}
+_SIGNATURES = {"presto_bucketize": (P, P, P, I64, I64, I32, I32, P)}
 
 
 def bucketize(values: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
@@ -33,11 +33,12 @@ def bucketize(values: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
     f, r = values.shape
     check(boundaries, "boundaries", torch.float32, (f, None), values.device)
     m = boundaries.shape[1]
-    check_shared(m)
+    staged = bucket_staged(m)
     check_grid_y(f)
     out = torch.empty((f, r), dtype=torch.int32, device=values.device)
     if f * r:
         launch("bucketize", _SIGNATURES, "presto_bucketize", values.device,
-               values.data_ptr(), boundaries.data_ptr(), out.data_ptr(), f, r, m)
+               values.data_ptr(), boundaries.data_ptr(), out.data_ptr(), f, r, m,
+               int(staged))
         LAUNCHES["bucketize"] += 1
     return out

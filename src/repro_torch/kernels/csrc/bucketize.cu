@@ -12,7 +12,8 @@
 // value waits on two trips to device memory and a search of log2(m)
 // dependent shared loads.  Design: the bucket tiles of common.cuh, shared
 // with fused_gen, so this pass and fused_gen give the same counts for +inf,
-// NaN and subnormals; thread t counts 4 consecutive values in lockstep.
+// NaN and subnormals; thread t counts 4 consecutive values in lockstep.  An
+// m above 32768 is searched in device memory (`staged` false).
 // 16-byte loads and stores when the rows are 16-byte aligned (aligned base and
 // R % 4 == 0), else masked 4-byte accesses.
 
@@ -24,10 +25,10 @@ using namespace presto;
 
 __global__ void bucketize_kernel(const float* __restrict__ values,
                                  const float* __restrict__ bounds, uint32_t* __restrict__ out,
-                                 long long r, int m, bool vector_access) {
+                                 long long r, int m, bool staged, bool vector_access) {
   const long long first = (long long)blockIdx.y * r;
   bucket_tile(
-      bounds, m, r,
+      bounds, m, staged, r,
       [&](long long k, float(&x)[kBucketValues]) {
         if (vector_access) {
           const float4 q = __ldg(reinterpret_cast<const float4*>(values + first + k));
@@ -53,13 +54,13 @@ __global__ void bucketize_kernel(const float* __restrict__ values,
 extern "C" {
 
 int presto_bucketize(const void* values, const void* bounds, void* out, long long f,
-                     long long r, int m, void* stream) {
+                     long long r, int m, int staged, void* stream) {
   size_t smem;
-  const cudaError_t err = bucket_smem(bucketize_kernel, m, &smem);
+  const cudaError_t err = bucket_smem(bucketize_kernel, m, staged, &smem);
   if (err != cudaSuccess) return (int)err;
   const bool vector_access = aligned16(values) && aligned16(out) && r % 4 == 0;
   bucketize_kernel<<<bucket_grid(f, r), kBucketThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)values, (const float*)bounds, (uint32_t*)out, r, m, vector_access);
+      (const float*)values, (const float*)bounds, (uint32_t*)out, r, m, staged != 0, vector_access);
   return (int)cudaGetLastError();
 }
 

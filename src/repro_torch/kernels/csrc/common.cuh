@@ -219,6 +219,14 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
 // lanes' probes of a deeper level spread over the banks (in sorted order,
 // a warp's probes of one step of a binary search all fall in one bank).
 //
+// A tree of m > 32768 boundaries (2^16 floats and more) does not fit in the
+// 227 KB a block may use.  For such m the kernels run a second mode: the
+// block stages nothing, and each thread searches the sorted boundaries where
+// they lie in device memory (`bucket_counts_global`), with the same lockstep
+// and the same compare.  The feature's 128 KB and more of boundaries stay in
+// the 50 MB L2, and the first probes, the same for every value, in L1.  The
+// binding chooses the mode (`_binding.bucket_staged`).
+//
 // The tree: the first m - 1 boundaries as a complete binary tree of
 // N = 2^L - 1 nodes, L = ceil(log2 m), node k's children at 2k + 1 and
 // 2k + 2, in-order positions m - 1 .. N - 1 holding NaN (never <= x); slot N
@@ -320,27 +328,59 @@ __device__ __forceinline__ void bucket_counts(const float* s, int m, int levels,
   for (int v = 0; v < V; ++v) count[v] = k[v] - nodes + le_ftz(last, x[v]);
 }
 
+// The same counts over the m sorted boundaries b in device memory (m >= 1),
+// by a branchless search of fixed trip count.  Invariant: every boundary
+// below `base` is <= x, and the count is at most base + n; a step probes
+// b[base + n/2] and keeps the half that holds the count.  After
+// ceil(log2 m) steps n = 1 and one more probe decides: ceil(log2 m) + 1
+// dependent loads, the same for every lane.  The compare is le_ftz, so the
+// counts are a prefix of the flushed boundaries exactly as in the tree.
+__device__ __forceinline__ void bucket_counts_global(const float* __restrict__ b, int m,
+                                                     const float (&x)[kBucketValues],
+                                                     uint32_t (&count)[kBucketValues]) {
+  constexpr int V = kBucketValues;
+  uint32_t base[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) base[v] = 0;
+  for (int n = m; n > 1; n -= n >> 1) {
+    const uint32_t half = n >> 1;
+#pragma unroll
+    for (int v = 0; v < V; ++v) base[v] += le_ftz(__ldg(b + base[v] + half), x[v]) ? half : 0u;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) count[v] = base[v] + le_ftz(__ldg(b + base[v]), x[v]);
+}
+
 // The body of bucketize_kernel and fused_gen_kernel over n values per
 // feature.  Grid bucket_grid(F, n), kBucketThreads threads, dynamic shared
-// memory bucket_smem.  `load(k, x)` reads values k .. k + V - 1 of the
-// block's feature into x (called only for k < n; the loader masks a ragged
-// tail), `store(k, count)` writes their results.
+// memory bucket_smem.  `staged`: the boundaries go into a tree in shared
+// memory; otherwise they are searched in device memory (m > 32768).
+// `load(k, x)` reads values k .. k + V - 1 of the block's feature into x
+// (called only for k < n; the loader masks a ragged tail), `store(k, count)`
+// writes their results.
 template <class Load, class Store>
 __device__ __forceinline__ void bucket_tile(const float* __restrict__ bounds, int m,
-                                            long long n, Load load, Store store) {
+                                            bool staged, long long n, Load load,
+                                            Store store) {
   constexpr int V = kBucketValues;
   extern __shared__ __align__(128) uint32_t s[];
   const long long k = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
   const bool live = k < n;
   float x[V];
   if (live) load(k, x);
-  const int levels = tree_levels(m);
-  float* tree = reinterpret_cast<float*>(s);
-  stage_tree(tree, bounds + (long long)blockIdx.y * m, m, levels);
-  __syncthreads();
-  if (!live) return;
+  const float* b = bounds + (long long)blockIdx.y * m;
   uint32_t count[V];
-  bucket_counts(tree, m, levels, x, count);
+  if (staged) {  // the same for the whole block
+    const int levels = tree_levels(m);
+    float* tree = reinterpret_cast<float*>(s);
+    stage_tree(tree, b, m, levels);
+    __syncthreads();
+    if (!live) return;
+    bucket_counts(tree, m, levels, x, count);
+  } else {
+    if (!live) return;
+    bucket_counts_global(b, m, x, count);
+  }
   store(k, count);
 }
 
@@ -350,10 +390,10 @@ inline dim3 bucket_grid(long long f, long long n) {
 }
 
 // Lets `kernel` take the shared memory of the tree over m boundaries, 2^L
-// floats (above 48 KB only after this call); the bindings check the size.
+// floats (above 48 KB only after this call); none when not `staged`.
 template <class Kernel>
-inline cudaError_t bucket_smem(Kernel kernel, int m, size_t* bytes) {
-  *bytes = m > 0 ? sizeof(float) << tree_levels(m) : 0;
+inline cudaError_t bucket_smem(Kernel kernel, int m, bool staged, size_t* bytes) {
+  *bytes = staged && m > 0 ? sizeof(float) << tree_levels(m) : 0;
   if (*bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }

@@ -48,20 +48,21 @@ __global__ void fused_dense_kernel(const uint4* __restrict__ words,
 // once per block are under half a microsecond of bytes, while each value
 // waits on two trips to device memory and a search of log2(m) dependent
 // shared loads.  Design: the bucket tiles of common.cuh (the TPU's m compares
-// per value become a search of an Eytzinger tree); thread t decodes group
+// per value become a search of an Eytzinger tree, or of the sorted
+// boundaries in device memory when m > 32768); thread t decodes group
 // t's 4 values from its one 16-byte load, counts them in lockstep, hashes
 // them and stores 16 bytes.  The block reads its feature's [seed, max] once.
 
 __global__ void fused_gen_kernel(const uint4* __restrict__ words,
                                  const float* __restrict__ bounds,
                                  const uint32_t* __restrict__ params, uint4* __restrict__ out,
-                                 long long groups_per_feature, int m) {
+                                 long long groups_per_feature, int m, bool staged) {
   const int f = blockIdx.y;
   const uint32_t seed = __ldg(params + 2 * f);
   const uint32_t d = __ldg(params + 2 * f + 1);
   const long long first = (long long)f * groups_per_feature;
   bucket_tile(
-      bounds, m, 4 * groups_per_feature,
+      bounds, m, staged, 4 * groups_per_feature,
       [&](long long k, float(&x)[kBucketValues]) {
         const uint4 p = __ldg(words + first + k / 4);
         x[0] = bytesplit_value<0>(p);
@@ -110,12 +111,12 @@ int presto_fused_sparse(const void* words, const void* params, void* out, long l
 }
 
 int presto_fused_gen(const void* words, const void* bounds, const void* params, void* out,
-                     long long f, long long g, int m, void* stream) {
+                     long long f, long long g, int m, int staged, void* stream) {
   size_t smem;
-  const cudaError_t err = bucket_smem(fused_gen_kernel, m, &smem);
+  const cudaError_t err = bucket_smem(fused_gen_kernel, m, staged, &smem);
   if (err != cudaSuccess) return (int)err;
   fused_gen_kernel<<<bucket_grid(f, 4 * g), kBucketThreads, smem, (cudaStream_t)stream>>>(
-      (const uint4*)words, (const float*)bounds, (const uint32_t*)params, (uint4*)out, g, m);
+      (const uint4*)words, (const float*)bounds, (const uint32_t*)params, (uint4*)out, g, m, staged != 0);
   return (int)cudaGetLastError();
 }
 

@@ -19,9 +19,9 @@ from repro_torch.kernels._binding import (
     I64,
     LAUNCHES,
     P,
+    bucket_staged,
     check,
     check_grid_y,
-    check_shared,
     launch,
     reset_launches,
 )
@@ -29,7 +29,7 @@ from repro_torch.kernels._binding import (
 _SIGNATURES = {
     "presto_fused_dense": (P, P, I64, P),
     "presto_fused_sparse": (P, P, P, I64, I64, I32, P),
-    "presto_fused_gen": (P, P, P, P, I64, I64, I32, P),
+    "presto_fused_gen": (P, P, P, P, I64, I64, I32, I32, P),
 }
 
 # the shared counter and its reset, also reachable from here
@@ -77,14 +77,14 @@ def fused_gen(
     check(boundaries, "boundaries", torch.float32, (f, None), words.device)
     check(params, "params", torch.int32, (f, 2), words.device)
     m = boundaries.shape[1]
-    check_shared(m)
+    staged = bucket_staged(m)
     check_grid_y(f)
     out = torch.empty((f, g, 4), dtype=torch.int32, device=words.device)
     if f * g:
         launch(
             "fused", _SIGNATURES, "presto_fused_gen", words.device,
             words.data_ptr(), boundaries.data_ptr(), params.data_ptr(),
-            out.data_ptr(), f, g, m,
+            out.data_ptr(), f, g, m, int(staged),
         )
         LAUNCHES["fused_gen"] += 1
     return out

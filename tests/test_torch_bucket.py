@@ -11,8 +11,12 @@ values [V t, V t + V), a ragged tail masked), the staging of the boundaries
 as a breadth-first (Eytzinger) tree (``tree_levels``, ``tree_slot``, NaN in
 the unused slots, the last boundary apart), and the search (L steps of
 k = 2k + 1 + (s[k] <= x), then k - N plus the last boundary's compare, with
-subnormal operands read as zero).  The block geometry is read from the
-header.  The chip run (``chip_smoke.py``) holds the kernels themselves
+subnormal operands read as zero).  For m > 32768, whose tree does not fit
+in shared memory, the kernels stage nothing and search the sorted
+boundaries in device memory (``bucket_counts_global``: a branchless search
+of fixed trip count, then one more probe); the binding chooses the mode
+(``_binding.bucket_staged``), and the mirror takes the same choice.  The
+block geometry is read from the header.  The chip run (``chip_smoke.py``) holds the kernels themselves
 against the port's plain versions at the cases below.
 """
 
@@ -26,6 +30,7 @@ import numpy as np
 import pytest
 
 from repro.kernels import ref as jref
+from repro_torch.kernels._binding import MAX_SHARED_BYTES, bucket_staged
 
 ROOT = Path(__file__).resolve().parents[1]
 HEADER = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "common.cuh").read_text()
@@ -38,8 +43,9 @@ TINY = np.finfo(np.float32).tiny
 # them exactly
 BUCKETIZE = jax.jit(jref.bucketize)
 # unpadded counts, then every count ops.pad_boundaries gives at rm1..rm5 and
-# at the tests' 600
-M_CASES = (0, 1, 3, 127, 129, 128, 640, 1024, 2048, 4096)
+# at the tests' 600, then counts searched in device memory: the first
+# (32769), padded (65536) and unpadded (40001)
+M_CASES = (0, 1, 3, 127, 129, 128, 640, 1024, 2048, 4096, 32769, 40001, 65536)
 
 
 def _chip_smoke():
@@ -114,6 +120,31 @@ def bucket_counts(s: np.ndarray, m: int, x: np.ndarray) -> np.ndarray:
     return (k - nodes + (last <= fx)).astype(np.int32)
 
 
+def global_counts(b: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """``bucket_counts_global`` for every value of x at once: m - 1 >= 0
+    boundaries in device memory; while n > 1, probe b[base + n/2] and move
+    base up by n/2 if it is <= x, n -= n/2; then count base plus the last
+    probe, b[base] <= x.  Every probe lies inside the row."""
+    m = len(b)
+    fb, fx = flush(b), flush(x)
+    base = np.zeros(len(fx), np.int64)
+    n = m
+    while n > 1:
+        half = n >> 1
+        assert (base + half < m).all()
+        base += np.where(fb[base + half] <= fx, half, 0)  # NaN compares false
+        n -= half
+    return (base + (fb[base] <= fx)).astype(np.int32)
+
+
+def counts_of(b: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """One feature's counts in the mode the binding chooses for its m."""
+    m = len(b)
+    if bucket_staged(m):
+        return bucket_counts(stage_tree(b), m, x)
+    return global_counts(b, x)
+
+
 def tiles(n: int):
     """Each live thread of one feature's blocks: (first value k, how many of
     its V values lie before n)."""
@@ -130,7 +161,7 @@ def mirror_bucketize(values: np.ndarray, bounds: np.ndarray) -> np.ndarray:
     f, r = values.shape
     out = np.full((f, r), -1, np.int32)
     for fi in range(f):
-        counts = bucket_counts(stage_tree(bounds[fi]), bounds.shape[1], values[fi])
+        counts = counts_of(bounds[fi], values[fi])
         for k, live in tiles(r):
             out[fi, k:k + live] = counts[k:k + live]
     return out
@@ -152,7 +183,7 @@ def mirror_fused_gen(words: np.ndarray, bounds: np.ndarray, seeds, maxes) -> np.
     out = np.full((f, g * 4), -1, np.int64)
     for fi in range(f):
         x = bytesplit_values(words[fi]).reshape(-1)
-        counts = bucket_counts(stage_tree(bounds[fi]), bounds.shape[1], x)
+        counts = counts_of(bounds[fi], x)
         hashed = np.asarray(jref.sigridhash(jnp.asarray(counts), int(seeds[fi]), int(maxes[fi])))
         for k, live in tiles(4 * g):
             assert live == VALUES
@@ -193,12 +224,12 @@ def adversarial_values(rng, bounds: np.ndarray, n: int) -> np.ndarray:
 def test_bucketize_mirror_matches_reference(m):
     """Every value of every feature is stored once, by the thread that owns
     it, with the oracle's count: R = 1, a ragged R behind full blocks, and
-    R = 1027 (not a multiple of 4).  An in-order walk of the staged tree,
-    then the last slot, gives the boundaries back in sorted order, the NaN
-    fill apart."""
+    R = 1027 (not a multiple of 4).  Where the tree is staged, an in-order
+    walk of it, then the last slot, gives the boundaries back in sorted
+    order, the NaN fill apart."""
     rng = np.random.default_rng(m)
     bounds = sorted_bounds(rng, 3, m)
-    for b in bounds:
+    for b in bounds[: 3 if bucket_staged(m) else 0]:
         s = stage_tree(b)
         walk = s[in_order(len(s) - 1) + [len(s) - 1]] if m else s
         np.testing.assert_array_equal(walk[~np.isnan(walk)], b)
@@ -246,8 +277,9 @@ def test_edge_values_against_reference():
 
 
 def test_chip_smoke_cases_reach_every_access_path():
-    """The bucket cases chip_smoke.py runs reach both ways of staging the
-    boundaries (16-byte loads where a feature's row is 16-byte aligned, else
+    """The bucket cases chip_smoke.py runs reach both modes (the tree in
+    shared memory, the search in device memory at m = 32769 and 65536), both
+    ways of staging the boundaries (16-byte loads where a feature's row is 16-byte aligned, else
     4-byte loads) and both ways of reading bucketize's values (16-byte
     vectors where the base is aligned and R % 4 == 0, else masked 4-byte
     loads), and cover the unpadded counts, a ragged R and every rm width's
@@ -275,6 +307,10 @@ def test_chip_smoke_cases_reach_every_access_path():
         staging["gen"] |= bounds_paths(f, pad(m), 4)
         staging["bucketize"] |= bounds_paths(f, pad(m), 4)
         value_paths.add(False)  # the values start 4 bytes past alignment
+    modes = {bucket_staged(m) for m in m_seen | set(smoke.UNPADDED_M)}
+    modes |= {bucket_staged(m) for _, _, m in smoke.DEVICE_SEARCH_CASES}
+    assert modes == {True, False}
+    assert {32769, 65536} <= {m for _, _, m in smoke.DEVICE_SEARCH_CASES}
     assert staging == {"gen": {True, False}, "bucketize": {True, False}}
     assert value_paths == {True, False}
     assert {1024, 2048, 4096} <= m_seen
@@ -283,18 +319,24 @@ def test_chip_smoke_cases_reach_every_access_path():
 
 
 def test_binding_checks_the_tree_size():
-    """The bindings refuse, before any launch, a boundary count whose tree
-    (m rounded up to a power of two slots, ``bucket_smem``) would not fit in
-    a block's shared memory, and take every count whose tree fits."""
-    from repro_torch.kernels._binding import MAX_SHARED_BYTES, check_shared
-
-    for m in (0, 1, 2, 3, 1024, 1025, 32768, 32769, 58112):
+    """The bindings stage the tree for every boundary count whose tree (m
+    rounded up to a power of two slots, ``bucket_smem``) fits in a block's
+    shared memory, and search device memory for every other count: they
+    refuse no m the kernels' int can hold."""
+    for m in (0, 1, 2, 3, 1024, 1025, 32768, 32769, 58112, 65536, 2**31 - 1):
         fits = (4 << tree_levels(m) if m else 0) <= MAX_SHARED_BYTES
-        if fits:
-            check_shared(m)
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                check_shared(m)
-    check_shared(32768)
-    with pytest.raises(ValueError):
-        check_shared(32769)
+        assert bucket_staged(m) == fits
+    assert bucket_staged(32768) and not bucket_staged(32769)
+    for m in (-1, 2**31):
+        with pytest.raises(ValueError):
+            bucket_staged(m)
+
+
+def test_device_memory_search_matches_the_tree():
+    """At a count the tree holds, the device-memory search gives the tree's
+    counts: the two modes agree wherever both can run, edges included."""
+    rng = np.random.default_rng(7)
+    for m in (1, 2, 3, 128, 129, 1024, 4097):
+        b = sorted_bounds(rng, 1, m)[0]
+        x = adversarial_values(rng, b[None], 2000)[0]
+        np.testing.assert_array_equal(global_counts(b, x), bucket_counts(stage_tree(b), m, x))

@@ -117,10 +117,10 @@ def test_store_ownership_and_bytes_match_reference():
 
 
 def test_reduced_configs_match_reference():
+    """The model configs, full and reduced, equal the reference's field for
+    field, their data configs included."""
     for name in ("rm1", "rm2", "rm5"):
-        assert dataclasses.asdict(pconfigs.CONFIGS[name]) == dataclasses.asdict(
-            jconfigs.CONFIGS[name].data
-        )
-        assert dataclasses.asdict(pconfigs.REDUCED[name]) == dataclasses.asdict(
-            jconfigs.REDUCED[name].data
-        )
+        for ours, theirs in ((pconfigs.CONFIGS[name], jconfigs.CONFIGS[name]),
+                             (pconfigs.REDUCED[name], jconfigs.REDUCED[name])):
+            assert dataclasses.asdict(ours.data) == dataclasses.asdict(theirs.data)
+            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)

@@ -251,11 +251,20 @@ def test_engine_stream_matches_reference(small_rm, placement, kernel_mode, megab
 
 
 def test_dedup_pages_wait_for_a_later_slice():
+    """Dedup pages (``sparse_refs``) run through ``execute_plan``: the batch
+    equals that of the same partition inflated to the classic layout
+    (``tests/test_torch_dedup.py`` holds them against the reference)."""
+    from repro_torch.data.columnar import inflate_partition
+
     cfg = RMDataConfig(*SMALL, rows_per_partition=256, dup_factor=4)
     src = SyntheticRecSysSource(cfg, rows=256)
     spec = TransformSpec.from_source(src)
-    pages = pages_from_partition(src.partition(0), spec)
+    part = src.partition(0)
+    pages = pages_from_partition(part, spec)
     assert "sparse_refs" in pages
     plan = lower_transform(spec, device="cpu")
-    with pytest.raises(NotImplementedError):
-        execute_plan(plan, {k: torch.from_numpy(v.view(np.int32)) for k, v in pages.items()})
+    as_t = lambda pg: {k: torch.from_numpy(v.view(np.int32)) for k, v in pg.items()}  # noqa: E731
+    got = execute_plan(plan, as_t(pages))
+    want = execute_plan(plan, as_t(pages_from_partition(inflate_partition(part), spec)))
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
