@@ -27,6 +27,16 @@ just after:
   partitions under presto (megabatch 1 and 2), unfused (1) and hybrid (2),
   every batch held against the inflated partition's fused batch and the
   plain path;
+* the store (``phase_store``): 4 classic and 4 dedup partitions written as
+  files to a temporary directory; host staging timed as generation, file
+  read, and page build and pin; ``PrefetchLoader`` (2 workers) over the
+  files (one counted pass, then 3 timed runs of 40 produces) and over the
+  source, every batch bitwise the main path's; the
+  feature cache at 2 batches (eviction spills, spill hits promote, every
+  hit bitwise); every dedup partition assembled from its cached blocks by
+  the rest program (``fused_dense`` and ``fused_gen``, no sparse kernel),
+  bitwise its cold produce; a seeded transient spec, a torn read and a
+  dedup ref outside [0, u) (raised on the host; the context survives);
 * training: three reduced-width DLRM steps on the card against the CPU
   from the same weights, then the full RM2 DLRM (63 tables of 500,000 x 128
   floats, ~61 GiB with AdamW, freed after) for 8 train steps on the presto
@@ -141,6 +151,7 @@ DEVICE_SEARCH_CASES = ((3, 1500, 32769), (3, 1500, 65536), (4, 1028, 40001))  # 
 LOGNORM_CASES = ((3, 5, 7), (1027,), (504, 8192))
 MAIN_CONFIG, MAIN_ROWS = "rm2", None  # full width, 8192 rows per partition
 DEDUP_FACTOR = 4  # rows per shared sparse block of the dedup store
+LOADER_RUNS, LOADER_CYCLES = 3, 10  # loader rate: 3 runs of the 4 file pids cycled 10 times
 TRAIN_LR = (3e-4, 2, 100)  # peak, warmup and total steps of the schedule
 TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # record_function ranges of the port
 
@@ -598,6 +609,273 @@ def phase_dedup(dev):
     check(pages["sparse_words"].shape[2] == u * spec.cfg.max_sparse_len // 32
           and tuple(pages["sparse_refs"].shape) == (1, rows), "dedup pages not at unique geometry")
     return engines, by_path, pages
+
+
+def loader_pass(engine, store, pids):
+    """``PrefetchLoader`` (2 workers, depth 2) over ``engine.produce_batch``;
+    returns the batches by pid and the launch counts."""
+    from repro_torch.data.loader import PrefetchLoader
+    from repro_torch.kernels import fused
+
+    fused.reset_launches()
+    loader = PrefetchLoader(pids, lambda pid: engine.produce_batch(store, pid),
+                            num_workers=2, depth=2)
+    try:
+        got = dict(loader)
+    finally:
+        loader.stop()
+    counts = dict(fused.LAUNCHES)
+    check(not any(t.is_alive() for t in loader._threads), "loader threads outlived stop()")
+    check(sorted(got) == list(pids), f"loader delivered {sorted(got)}")
+    return got, counts
+
+
+def loader_rate(engine, store, pids, want: dict, cycles: int) -> float:
+    """Delivered samples/s of ``PrefetchLoader`` (2 workers, depth 2) over
+    `pids` cycled `cycles` times, wall clock; each batch is held bitwise to
+    ``want`` as it arrives and then dropped."""
+    from repro_torch.data.loader import PrefetchLoader
+
+    pids = list(pids)
+    n = len(pids) * cycles
+    t0 = time.perf_counter()
+    loader = PrefetchLoader(range(n), lambda i: engine.produce_batch(store, pids[i % len(pids)]),
+                            num_workers=2, depth=2)
+    seen = 0
+    try:
+        for i, batch in loader:
+            check_batch(f"loader item {i}", batch, want[pids[i % len(pids)]])
+            seen += 1
+    finally:
+        loader.stop()
+    dt = time.perf_counter() - t0
+    check(seen == n and not any(t.is_alive() for t in loader._threads),
+          f"loader delivered {seen} of {n}")
+    return n * store.source.rows / dt
+
+
+def check_batch(name: str, got: dict, want: dict) -> None:
+    """Bitwise, dense included: the same kernels on the same pages."""
+    check(set(got) == set(want), f"{name}: batch keys")
+    for key, v in want.items():
+        check(got[key].dtype == v.dtype and torch.equal(got[key], v), f"{name}: {key} differs")
+
+
+def phase_store(dev, engine, fused_batches: dict):
+    """The file-backed, fault-checked store and the feature cache at full
+    rm2 width.  Materializes 4 classic partitions (the main path's pids 0-3)
+    and 4 dedup partitions (dup 4) as files in a temporary directory, times
+    host staging in three parts (generation, the file read, page build and
+    pin), produces through ``PrefetchLoader`` over the files and over the
+    source, runs the feature cache through eviction, spill and promotion,
+    assembles every dedup partition from its cached blocks, and drives the
+    fault domain: a seeded transient spec, a torn read and an out-of-range
+    dedup ref (C9).  Returns the launch counts of the loader and assembly
+    paths."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core.featcache import (
+        BlockKey, CacheKey, FeatureCache, batch_nbytes, default_spill_store)
+    from repro_torch.core.preprocess import pages_from_partition
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.columnar import (
+        REFS_COLUMN, EncodedColumn, Partition, partition_digest, write_partition)
+    from repro_torch.data.storage import (
+        CorruptPartitionError, IoFaultInjector, PartitionedStore, TransientReadError,
+        parse_iofault_spec)
+    from repro_torch.data.synth import RM_CONFIGS, SyntheticRecSysSource
+    from repro_torch.kernels import fused
+
+    spec, pids = engine.spec, range(4)
+    src = SyntheticRecSysSource(RM_CONFIGS[MAIN_CONFIG], rows=MAIN_ROWS, seed=0)
+    dcfg = dataclasses.replace(RM_CONFIGS[MAIN_CONFIG], dup_factor=DEDUP_FACTOR)
+    dsrc = SyntheticRecSysSource(dcfg, rows=MAIN_ROWS, seed=0)
+    dengine = TorchPreStoEngine(TransformSpec.from_source(dsrc))
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        root = Path(tmp)
+        fstore = PartitionedStore(4, 4, src, root=str(root / "classic"))
+        dstore = PartitionedStore(4, 4, dsrc, root=str(root / "dedup"))
+        t0 = time.perf_counter()
+        fstore.materialize(pids)
+        dstore.materialize(pids)
+        files = sorted(root.rglob("*.rp"))
+        check(len(files) == 8, f"{len(files)} partition files")
+        print(f"store: materialized 4 classic and 4 dedup rm2 partitions "
+              f"({sum(f.stat().st_size for f in files)} bytes in 8 files, written with "
+              f"write_partition) in {time.perf_counter() - t0:.2f} s")
+
+        # host staging in three parts, host clock, mean over the 4 partitions
+        split = {"generation": [], "file read": [], "page build": [], "pin": []}
+        for pid in pids:
+            t0 = time.perf_counter()
+            generated = src.partition(pid)
+            t1 = time.perf_counter()
+            part = fstore.read(pid)
+            t2 = time.perf_counter()
+            pages = pages_from_partition(part, spec)
+            t3 = time.perf_counter()
+            engine.pin_pages(pages)
+            t4 = time.perf_counter()
+            check(partition_digest(part) == partition_digest(generated),
+                  f"pid {pid}: the file's pages differ from the source's")
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[key].append(dt)
+        mean = {k: statistics.mean(v) for k, v in split.items()}
+        print("store: host staging per rm2 partition (host clock, mean of 4): "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in mean.items())
+              + f"; file read + page build + pin {sum(mean.values()) - mean['generation']:.4f} s "
+              f"against generation + page build + pin {sum(mean.values()) - mean['file read']:.4f} s")
+
+        # produce through the loader over the files: the counted pass, then
+        # the rate over many produces, and the source's rate beside it
+        got, counts = loader_pass(engine, fstore, pids)
+        by_path["store presto"] = {1: counts}
+        check_launches("store presto", engine.lowered_plan, by_path["store presto"])
+        for pid in pids:
+            check_batch(f"store pid {pid} (file)", got[pid], fused_batches[pid])
+        file_rates = [loader_rate(engine, fstore, pids, fused_batches, LOADER_CYCLES)
+                      for _ in range(LOADER_RUNS)]
+        src_rate = loader_rate(engine, PartitionedStore(4, 4, src), pids, fused_batches, 2)
+        print(f"store: PrefetchLoader (2 workers, depth 2) under presto, wall clock, after a "
+              f"warm pass: from the files {LOADER_RUNS} runs of {4 * LOADER_CYCLES} produces "
+              f"(the 4 pids cycled {LOADER_CYCLES} times) delivered "
+              + ", ".join(f"{r:.1f}" for r in file_rates)
+              + f" samples/s (median {statistics.median(file_rates):.1f}, spread "
+              f"{(max(file_rates) - min(file_rates)) / statistics.median(file_rates):.3f} of it); "
+              f"from the synthetic source 8 produces delivered {src_rate:.1f} samples/s; "
+              f"launches of the counted pass {counts}; every batch bitwise the main path's")
+
+        # the feature cache: capacity 2 batches, eviction spills, spill hits promote
+        one = batch_nbytes(got[0])
+        check(one == sum(v.numel() * v.element_size() for v in got[0].values()) > 0,
+              "batch_nbytes of a device batch")
+        spill = default_spill_store(4)
+        cache = FeatureCache(2 * one, spill=spill, device=dev)
+        keys = {pid: CacheKey(fstore.partition_fingerprint(pid), engine.cache_signature(),
+                              engine.placement) for pid in pids}
+        for pid in pids:
+            status, _ = cache.begin(keys[pid])
+            check(status == "produce", f"cache pid {pid}: cold probe {status}")
+            cache.fulfill(keys[pid], got[pid])
+        st = cache.stats()
+        check(st.evictions == 2 and len(spill) == 2 and st.resident_bytes == 2 * one,
+              f"cache after the cold pass: {st}")
+        t0 = time.perf_counter()
+        for pid in pids:
+            status, hit = cache.begin(keys[pid])
+            check(status == "hit", f"cache pid {pid}: second pass {status}")
+            check(all(v.device == dev for v in hit.values()), "a hit left the card")
+            check_batch(f"cache hit pid {pid}", hit, fused_batches[pid])
+        dt_hits = time.perf_counter() - t0
+        status, hit = cache.begin(keys[3])  # just promoted: a memory hit
+        check(status == "hit" and all(hit[k] is v for k, v in cache.get(keys[3]).items()),
+              "a memory hit copied the batch")
+        st = cache.stats()
+        check(st.hits == 6 and st.spill_hits == 4 and st.misses == 4
+              and st.resident_bytes == 2 * one and st.entries == 2,
+              f"cache after the second pass: {st}")
+        resident = torch.cuda.memory_allocated(dev)
+        print(f"store: feature cache of 2 batches ({2 * one} device bytes resident, "
+              f"{one} per batch by numel * element_size; memory_allocated {resident}); "
+              f"second pass {st.hits - 2} hits ({st.spill_hits} spill hits promoted to the "
+              f"card) in {dt_hits:.3f} s, evictions {st.evictions}, spilled {st.spilled_entries} "
+              f"blocks of {st.spilled_bytes} bytes; every hit bitwise the cold batch")
+        del cache, spill, hit
+
+        # block assembly: extract -> put_block -> assemble_from_blocks on the card
+        bcache = FeatureCache(2 * one, device=dev)
+        assembled, dcold, walls = {}, {}, {"assemble": [], "cold": []}
+        for pid in pids:
+            cold = dcold[pid] = dengine.produce_batch(dstore, pid)
+            refs, fps = dstore.block_refs(pid), dstore.block_fingerprints(pid)
+            ids, lens = dengine.extract_blocks(cold, refs)
+            bkeys = [BlockKey(fp, dengine.cache_signature(), dengine.placement) for fp in fps]
+            for key, i, n in zip(bkeys, ids, lens):
+                bcache.put_block(key, i, n)
+            blocks = bcache.get_blocks(bkeys)
+            check(blocks is not None, f"dedup pid {pid}: blocks missing")
+            pages = dengine.stage_partition(dstore, pid)
+            torch.cuda.synchronize()
+            fused.reset_launches()
+            t0 = time.perf_counter()
+            batch = dengine.assemble_from_blocks(pages, *blocks)
+            walls["assemble"].append(time.perf_counter() - t0)
+            counts = dict(fused.LAUNCHES)
+            t0 = time.perf_counter()  # the whole Transform from the same staged pages
+            dengine.preprocess_local(dengine.put_pages(dengine.pin_pages(pages)))
+            torch.cuda.synchronize()
+            walls["cold"].append(time.perf_counter() - t0)
+            assembled[pid] = counts
+            check(counts["fused_dense"] == 1 and counts["fused_gen"] == 1
+                  and sum(counts.values()) == 2, f"assemble pid {pid}: launches {counts}")
+            check_batch(f"assembled dedup pid {pid}", batch, cold)
+        by_path["assemble"] = {1: {n: sum(c[n] for c in assembled.values())
+                                   for n in assembled[0]}}
+        bst = bcache.stats()
+        print(f"store: block assembly of 4 dedup partitions ({len(fps)} blocks each, "
+              f"{bst.block_hits} block hits): every batch bitwise its cold produce; the rest "
+              f"program launched {by_path['assemble'][1]}; from staged pages, assembly "
+              f"{1e3 * statistics.mean(walls['assemble']):.3f} ms against the whole Transform "
+              f"{1e3 * statistics.mean(walls['cold']):.3f} ms (host clock, pin and copy-in "
+              f"included, mean of 4)")
+        del bcache
+
+        # faults: seeded transients retry to the clean bytes
+        inj = parse_iofault_spec("transient=0.5,seed=7")
+        fault_store = PartitionedStore(4, 4, src, root=str(root / "classic"), fault_injector=inj)
+        transients = 0
+        for pid in pids:
+            for _ in range(32):
+                try:
+                    batch = engine.produce_batch(fault_store, pid)
+                    break
+                except TransientReadError:
+                    transients += 1
+            else:
+                check(False, f"pid {pid} never read through transient=0.5")
+            check_batch(f"transient pid {pid}", batch, fused_batches[pid])
+        check(transients > 0 and inj.summary() == {"transient": transients},
+              f"transients {transients}, injected {inj.summary()}")
+
+        # a torn read raises and delivers nothing: no kernel runs
+        torn = PartitionedStore(4, 4, src, root=str(root / "classic"),
+                                fault_injector=IoFaultInjector(seed=2, corrupt=1.0))
+        fused.reset_launches()
+        try:
+            engine.produce_batch(torn, 1)
+            check(False, "a torn read was delivered")
+        except CorruptPartitionError as e:
+            check(e.retryable and e.pid == 1, f"torn read error {e!r}")
+        check(sum(fused.LAUNCHES.values()) == 0, f"a torn read launched {fused.LAUNCHES}")
+
+        # C9: a dedup ref >= u raises on the host; the context survives
+        part = dsrc.partition(0)
+        u = part.schema.unique_rows
+        refs = np.array(part.columns[REFS_COLUMN].pages["refs"], dtype=np.uint32)
+        refs[5] = u
+        cols = dict(part.columns)
+        cols[REFS_COLUMN] = EncodedColumn(part.columns[REFS_COLUMN].schema, {"refs": refs})
+        bad_store = PartitionedStore(1, 1, root=str(root / "bad"))
+        write_partition(bad_store._path(0), Partition(0, part.schema, cols))
+        fused.reset_launches()
+        try:
+            dengine.produce_batch(bad_store, 0)
+            check(False, "a dedup ref >= u was delivered")
+        except CorruptPartitionError as e:
+            check(not e.retryable and e.pid == 0, f"C9 error {e!r}")
+        check(sum(fused.LAUNCHES.values()) == 0, f"the bad ref launched {fused.LAUNCHES}")
+        after = dengine.produce_batch(dstore, 0)  # a launch on the same context
+        torch.cuda.synchronize()
+        check(fused.LAUNCHES["fused_sparse"] == 1, "no kernel ran after the bad ref")
+        check_batch("dedup pid 0 after the bad ref", after, dcold[0])
+        print(f"store: faults: transient=0.5 (seed 7) retried {transients} read(s) to bitwise "
+              f"clean batches; a torn read raised CorruptPartitionError (retryable) with no "
+              f"launch; a dedup ref = u raised CorruptPartitionError (not retryable) on the "
+              f"host with no launch, and the next produce ran on the same context")
+    return by_path
 
 
 def train_config():
@@ -1171,14 +1449,17 @@ def main() -> int:
     torch.cuda.synchronize()
     engines, by_path = phase_host_paths(engine.spec, store, fused_batches)
     train_batches = [fused_batches[pid] for pid in range(8)]
-    del fused_batches
     dedup_engines, dedup_by_path, dedup_pages = phase_dedup(dev)
     torch.cuda.synchronize()
+    store_by_path = phase_store(dev, engine, fused_batches)
+    torch.cuda.synchronize()
+    del fused_batches
     phase_train_parity(dev)
     ingest_launches = phase_train(dev, train_batches, engine, store)
     del train_batches
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
+               **store_by_path,
                "ingest": ingest_launches}
     totals = {n: sum(path_totals(by_k)[n] for by_k in by_path.values()) for n in launches[1]}
     for name, n in totals.items():

@@ -23,6 +23,7 @@ from repro_torch.core.opgraph import (
 )
 from repro_torch.core.spec import TransformSpec
 from repro_torch.data.columnar import Partition, partition_refs
+from repro_torch.data.storage import CorruptPartitionError
 from repro_torch.kernels import ops as K
 
 MiniBatch = Dict[str, torch.Tensor]
@@ -44,10 +45,23 @@ def pages_from_partition(part: Partition, spec: TransformSpec) -> Dict[str, np.n
     encoded words go to the device once — plus a ``sparse_refs`` vector
     mapping the ``rows`` logical samples back to blocks, exactly as the JAX
     package does; the Transform gather-expands after hashing
-    (``execute_plan``)."""
+    (``execute_plan``).
+
+    The refs are checked against ``[0, u)`` here, on the host, before any
+    page is built: a ref outside it raises a non-retryable
+    ``CorruptPartitionError``.  The JAX package's ``jnp.take`` would fill
+    such a ref with INT_MIN (or wrap a negative one); PyTorch's gather on
+    the card would assert on the device and end the CUDA context."""
     cfg = spec.cfg
     rows = part.schema.rows
     u = part.schema.unique_rows  # == rows for classic partitions
+    refs = partition_refs(part)
+    if refs is not None and refs.size and (refs.min() < 0 or refs.max() >= u):
+        bad = int(((refs < 0) | (refs >= u)).sum())
+        raise CorruptPartitionError(
+            f"partition {part.partition_id}: {bad} dedup ref(s) outside [0, {u})",
+            pid=part.partition_id, retryable=False,
+        )
     dense = []
     for i in range(cfg.n_dense):
         col = part.columns[f"d{i}"]
@@ -65,10 +79,30 @@ def pages_from_partition(part: Partition, spec: TransformSpec) -> Dict[str, np.n
         "length_words": np.stack(lengths),  # (n_sparse, u/32, lw) u32
         "label_words": label_words,  # (rows,) u32
     }
-    refs = partition_refs(part)
     if refs is not None:
         pages["sparse_refs"] = refs.astype(np.int32)  # (rows,) block index
     return pages
+
+
+def pages_shape_dtypes(spec: TransformSpec, rows: int) -> Dict[str, ShapeDtype]:
+    """Shapes and dtypes of one partition's staged page tensors, as the
+    engine puts them on its device: int32 views of the uint32 words.
+    Sparse/length pages live at unique-block geometry when the dataset
+    dedups, matching ``pages_from_partition``."""
+    cfg = spec.cfg
+    u = rows // cfg.dup_factor
+    i32 = torch.int32
+    out = {
+        "dense_words": ShapeDtype((cfg.n_dense, rows // 4, 4), i32),
+        "sparse_words": ShapeDtype(
+            (cfg.n_sparse, u * cfg.max_sparse_len // 32, cfg.id_width), i32
+        ),
+        "length_words": ShapeDtype((cfg.n_sparse, u // 32, cfg.len_width), i32),
+        "label_words": ShapeDtype((rows,), i32),
+    }
+    if cfg.dup_factor > 1:
+        out["sparse_refs"] = ShapeDtype((rows,), i32)
+    return out
 
 
 def stack_pages(pages_list) -> Dict[str, np.ndarray]:

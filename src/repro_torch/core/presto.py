@@ -19,6 +19,13 @@ Nothing synchronises until delivery, which waits on one CUDA event per
 chunk.  ``produce_stream`` stages the next chunk (read, page build, pin) on a
 thread while the current chunk's copies and kernels run.
 
+The port has no jit, so nothing is compiled or shared between engines:
+each engine runs its own lowered plan, and the reference's process-wide
+executable registry (``repro.core.execcache``) has no counterpart here.
+Each produce call selects the engine's device, so loader threads
+(``data.loader.PrefetchLoader``) may call ``produce_batch`` concurrently;
+each call stages into its own pinned buffers and waits on its own event.
+
 Pinned buffers come from PyTorch's caching host allocator, which records an
 event on the stream of each non-blocking copy out of a block and does not
 hand the block out again before that event completes — so a staging buffer
@@ -29,6 +36,7 @@ under a kernel that still reads it.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 from concurrent.futures import ThreadPoolExecutor
@@ -46,13 +54,16 @@ from repro_torch.core.opgraph import (
     LoweredPlan,
     build_transform_graph,
     lower,
+    prepare_env,
     resolve_placements,
 )
 from repro_torch.core.preprocess import (
     MiniBatch,
+    ShapeDtype,
     execute_plan,
     flatten_megabatch,
     pages_from_partition,
+    pages_shape_dtypes,
     stack_pages,
 )
 from repro_torch.core.spec import TransformSpec
@@ -154,7 +165,10 @@ class TorchPreStoEngine:
         engine runs on CUDA (views of the numpy arrays on the CPU)."""
         out = {}
         for k, v in pages.items():
-            t = torch.from_numpy(np.ascontiguousarray(v).view(np.int32))
+            v = np.ascontiguousarray(v)
+            if not v.flags.writeable:  # a view of a file's bytes (labels)
+                v = v.copy()
+            t = torch.from_numpy(v.view(np.int32))
             out[k] = t.pin_memory() if self.device.type == "cuda" else t
         return out
 
@@ -195,14 +209,38 @@ class TorchPreStoEngine:
         split = {key: torch.split(v, rows, dim=0) for key, v in mb.items()}
         return tuple({key: split[key][i] for key in mb} for i in range(k))
 
+    def _preprocess_rest(self, pages: Dict[str, torch.Tensor]) -> MiniBatch:
+        """Partial Transform: every family EXCEPT sparse/lengths, from the
+        dense and label pages alone.  Under ``presto`` it launches
+        ``fused_dense`` and ``fused_gen`` and no sparse kernel."""
+        plan = self.lowered_plan
+        env = prepare_env(pages, plan.gen_index)
+        for st in plan.stages:
+            if st.family in ("sparse", "lengths") or st.name == "form_batch":
+                continue
+            env.update(zip(st.outputs, st.fn(*(env[k] for k in st.inputs))))
+        # exactly form_batch's expressions for these keys
+        return {
+            "dense": env["dense_norm"].t().contiguous(),
+            "one_hot_ids": env["gen_hashed"].t().contiguous(),
+            "labels": env["labels_f32"].contiguous(),
+        }
+
+    def _on_device(self):
+        """Select the engine's device for the calling thread."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def _launch(self, pinned: HostPages) -> Tuple[Tuple[MiniBatch, ...], Optional[torch.cuda.Event]]:
         """Copy one staged chunk in and queue its kernels; returns the
         batches and the event that marks them done (None on the CPU)."""
-        batches = self.preprocess_megabatch(self.put_pages(pinned))
-        if self.device.type == "cpu":
-            return batches, None
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        with self._on_device():
+            batches = self.preprocess_megabatch(self.put_pages(pinned))
+            if self.device.type == "cpu":
+                return batches, None
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
         return batches, done
 
     @staticmethod
@@ -212,14 +250,19 @@ class TorchPreStoEngine:
 
     # -- produce path -------------------------------------------------------------
     def produce_batch(self, store: PartitionedStore, pid: int) -> MiniBatch:
-        """Extract + Transform one partition into a device-ready mini-batch."""
+        """Extract + Transform one partition into a device-ready mini-batch.
+        Returns once the batch is complete on the device."""
         return self.produce_batches(store, [pid])[0]
 
     def produce_batches(
         self, store: PartitionedStore, pids: Sequence[int]
     ) -> List[MiniBatch]:
         """Extract + Transform K partitions with ONE megabatched launch per
-        kernel; bitwise identical to K ``produce_batch`` calls."""
+        kernel; bitwise identical to K ``produce_batch`` calls.  A plan with
+        a non-row-local stage runs them solo instead."""
+        pids = list(pids)
+        if len(pids) > 1 and not self.lowered_plan.megabatch_safe():
+            return [self.produce_batch(store, pid) for pid in pids]
         batches, done = self._launch(self.pin_pages(self.stage_megabatch(store, pids)))
         self._deliver(done)
         return list(batches)
@@ -236,14 +279,17 @@ class TorchPreStoEngine:
         """The zero-stall produce loop: megabatched launches, double-buffered.
 
         Yields ``(pid, mini-batch)`` in `pids` order.  Partitions are
-        grouped into megabatches of up to ``megabatch``; each group's kernels
-        run once.  With ``overlap`` the next ``lookahead`` groups are read,
-        page-built and pinned on a staging thread while the current group's
-        copies and kernels run, and the host waits on the group's event only
-        at delivery.  Batches are bitwise identical to serial
-        ``produce_batch`` calls either way."""
+        grouped into megabatches of up to ``megabatch`` (1 for a plan with a
+        non-row-local stage); each group's kernels run once.  With
+        ``overlap`` the next ``lookahead`` groups are read, page-built and
+        pinned on a staging thread while the current group's copies and
+        kernels run, and the host waits on the group's event only at
+        delivery.  Batches are bitwise identical to serial ``produce_batch``
+        calls either way."""
         pids = list(pids)
         k = max(1, int(megabatch))
+        if k > 1 and not self.lowered_plan.megabatch_safe():
+            k = 1
         chunks = [pids[i : i + k] for i in range(0, len(pids), k)]
         if not chunks:
             return
@@ -274,3 +320,64 @@ class TorchPreStoEngine:
                 top_up()  # refill behind the in-flight copies and kernels
                 self._deliver(done)  # block only at delivery
                 yield from zip(chunk, batches)
+
+    def pages_struct(self, rows: int) -> Dict[str, ShapeDtype]:
+        """Shapes and dtypes of one partition's page tensors on the device."""
+        return pages_shape_dtypes(self.spec, rows)
+
+    # -- block-granularity cache hooks (dedup datasets) -------------------------
+    #
+    # A dedup partition's train-ready sparse content is fully determined by
+    # its unique blocks: rows sharing a block have identical multi_hot_ids /
+    # lengths slices.  ``extract_blocks`` pulls those per-block slices out of
+    # a produced batch (publish side, to the host once) and
+    # ``assemble_from_blocks`` rebuilds a full batch from cached blocks plus
+    # the rest program (``_preprocess_rest``) over the per-sample families
+    # (dense/gen/labels), gathering the blocks through the refs on the
+    # device — bitwise a cold produce of the same partition.
+
+    @staticmethod
+    def extract_blocks(batch: MiniBatch, refs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-unique-block hashed sparse content of a produced batch, on the
+        host: ``(ids (u, S, L) i32, lens (u, S) i32)``.  Block b's slice is
+        the first row r with ``refs[r] == b`` (all such rows are equal)."""
+        _, first = np.unique(np.asarray(refs), return_index=True)
+        idx = torch.from_numpy(first).to(batch["multi_hot_ids"].device)
+        ids = batch["multi_hot_ids"].index_select(0, idx).cpu().numpy()
+        lens = batch["lengths"].index_select(0, idx).cpu().numpy()
+        return ids, lens
+
+    def assemble_from_blocks(
+        self,
+        pages: Dict[str, np.ndarray],
+        block_ids: np.ndarray,
+        block_lens: np.ndarray,
+    ) -> MiniBatch:
+        """Full batch from cached sparse blocks + the rest program.
+
+        ``pages`` is dedup-staged (``stage_partition``) output, its refs
+        already checked against the partition's blocks; only its dense and
+        label pages go to the device — the sparse pages' decode and hash is
+        the work the block cache saved.  The blocks are copied in and
+        gathered through the refs on the device.  Returns once the batch is
+        complete; bitwise identical to a cold produce of the partition."""
+        refs = np.asarray(pages["sparse_refs"], dtype=np.int64)
+        n_blocks = len(block_ids)
+        if len(block_lens) != n_blocks or (
+            refs.size and (refs.min() < 0 or refs.max() >= n_blocks)
+        ):
+            raise ValueError(
+                f"refs outside the {n_blocks} cached block(s) "
+                f"({len(block_lens)} length rows)"
+            )
+        rest = self.pin_pages(
+            {"dense_words": pages["dense_words"], "label_words": pages["label_words"]}
+        )
+        with self._on_device():
+            batch = self._preprocess_rest(self.put_pages(rest))
+            idx = torch.from_numpy(refs).to(self.device)
+            batch["multi_hot_ids"] = torch.as_tensor(block_ids).to(self.device).index_select(0, idx)
+            batch["lengths"] = torch.as_tensor(block_lens).to(self.device).index_select(0, idx)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        return batch

@@ -1,16 +1,19 @@
 """Partitioned columnar format (Parquet-lite) for raw RecSys features.
 
-The port's own copy of the in-memory half of ``repro.data.columnar``: the
-schema, the encoded partition, its numpy encode/decode and
-``inflate_partition``.  File I/O, checksums and ``block_fingerprints`` are
-not carried yet.
+The port's own copy of ``repro.data.columnar``.  The file format is shared:
+both packages write the same bytes for the same partition and each reads
+the other's files.
 
 A *partition* is a self-contained group of rows (one training mini-batch in
 the paper: 8,192 rows).  Partitions are mutually independent — the property
 PreSto exploits: all transforms for a mini-batch touch exactly one partition,
 so preprocessing can run wherever that partition lives with zero cross-shard
-communication.  Each column's pages are contiguous uint32 word arrays whose
-sizes are fully determined by the dataset-level schema.
+communication.
+
+On-disk layout (one file per partition):
+    [8B magic 'RPRESTO1'][4B header_len][header JSON][page words...]
+Each column's pages are contiguous uint32 word arrays whose sizes are fully
+determined by the dataset-level schema.
 
 Column kinds
 ------------
@@ -33,11 +36,17 @@ its unique block.  Dense columns and labels stay per-sample.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import io
+import json
+import struct
 from typing import Dict, List, Mapping
 
 import numpy as np
 
 from repro_torch.data import encoding as enc
+
+_MAGIC = b"RPRESTO1"
 
 # partition-wide pseudo-column holding the per-sample block references of a
 # dedup-form partition (kind "refs"; exactly one per schema when dup_factor>1)
@@ -88,6 +97,32 @@ class PartitionSchema:
                     "(columnar.refs_column())"
                 )
 
+    def dense_columns(self) -> List[ColumnSchema]:
+        return [c for c in self.columns if c.kind == "dense"]
+
+    def sparse_columns(self) -> List[ColumnSchema]:
+        return [c for c in self.columns if c.kind == "sparse"]
+
+    def page_sizes(self, col: ColumnSchema) -> Dict[str, int]:
+        """Word counts of each page of `col` — static given the schema."""
+        r = self.rows
+        if col.kind == "dense":
+            return {"data": r}  # 1 word per float (plain and bytesplit alike)
+        if col.kind == "refs":
+            return {"refs": r}  # 1 uint32 block index per logical sample
+        u = self.unique_rows  # sparse pages live at unique-block geometry
+        total_vals = u * col.max_len  # ragged values stored padded-capacity
+        sizes = {"lengths": enc.pack_words_needed(u, col.len_width)}
+        if col.encoding == "dict":
+            sizes["dict"] = col.dict_size
+            sizes["values"] = enc.pack_words_needed(total_vals, col.code_width)
+        else:
+            sizes["values"] = enc.pack_words_needed(total_vals, col.id_width)
+        return sizes
+
+    def encoded_words(self) -> int:
+        return sum(sum(self.page_sizes(c).values()) for c in self.columns)
+
     @property
     def unique_rows(self) -> int:
         """Stored sparse-block count per partition (== rows when dup 1)."""
@@ -102,6 +137,24 @@ class PartitionSchema:
             rows=self.rows,
             columns=tuple(c for c in self.columns if c.kind != "refs"),
             dup_factor=1,
+        )
+
+    def to_json(self) -> str:
+        d = {
+            "rows": self.rows,
+            "columns": [dataclasses.asdict(c) for c in self.columns],
+        }
+        if self.dup_factor != 1:  # dup-1 headers stay the classic layout's
+            d["dup_factor"] = self.dup_factor
+        return json.dumps(d)
+
+    @staticmethod
+    def from_json(s: str) -> "PartitionSchema":
+        d = json.loads(s)
+        return PartitionSchema(
+            rows=d["rows"],
+            columns=tuple(ColumnSchema(**c) for c in d["columns"]),
+            dup_factor=d.get("dup_factor", 1),
         )
 
 
@@ -124,6 +177,13 @@ class Partition:
         return sum(
             int(p.nbytes) for c in self.columns.values() for p in c.pages.values()
         )
+
+    def logical_nbytes(self) -> int:
+        """Bytes the same logical rows would occupy undeduped (dup_factor 1).
+        Equal to ``nbytes()`` for classic partitions."""
+        if self.schema.dup_factor == 1:
+            return self.nbytes()
+        return self.schema.logical_schema().encoded_words() * 4
 
     def page_arrays(self) -> Dict[str, np.ndarray]:
         """Flat dict 'col/page' -> words, the kernel-side input layout."""
@@ -303,3 +363,155 @@ def inflate_partition(part: Partition) -> Partition:
                 pages["values"] = enc.bitpack(flat, cs.id_width)
             cols[cs.name] = EncodedColumn(cs, pages)
     return Partition(part.partition_id, logical, cols)
+
+
+def block_fingerprints(part: Partition) -> List[str] | None:
+    """Content digest of each unique sparse block (dedup partitions only).
+
+    Block b's digest covers every sparse column's decoded values + length for
+    that block, so two blocks hash alike iff their decoded content is equal —
+    across partitions, datasets, tenants and the two packages.  These are
+    the block-granularity components of feature-cache keys
+    (``core.featcache.BlockKey``)."""
+    schema = part.schema
+    if schema.dup_factor == 1:
+        return None
+    u = schema.unique_rows
+    payload = []  # per sparse column: (u, max_len) vals and (u,) lens
+    for cs in schema.sparse_columns():
+        col = part.columns[cs.name]
+        total = u * cs.max_len
+        if cs.encoding == "dict":
+            vals = enc.dict_decode(
+                col.pages["dict"].view(np.int32), col.pages["values"], total,
+                cs.code_width,
+            ).astype(np.int32)
+        else:
+            vals = enc.bitunpack(col.pages["values"], total, cs.id_width).astype(
+                np.int32
+            )
+        payload.append(vals.reshape(u, cs.max_len))
+        payload.append(
+            enc.bitunpack(col.pages["lengths"], u, cs.len_width)
+            .astype(np.int32).reshape(u, 1)
+        )
+    stacked = np.ascontiguousarray(np.concatenate(payload, axis=1))
+    return [
+        hashlib.sha256(stacked[b].tobytes()).hexdigest()[:16] for b in range(u)
+    ]
+
+
+def partition_digest(part: Partition) -> str:
+    """Content digest of one partition's page words, in a canonical order.
+
+    It compares a just-read partition against a trusted reference wherever
+    the bytes came from (file, source, or a torn read): equal digest ⇔ equal
+    page words ⇔ bitwise-equal batch.  This is the end-to-end integrity
+    check the storage fault domain verifies reads against."""
+    h = hashlib.sha256()
+    h.update(part.schema.to_json().encode())
+    for cname in sorted(part.columns):
+        col = part.columns[cname]
+        for pname in sorted(col.pages):
+            words = np.ascontiguousarray(col.pages[pname], dtype=np.uint32)
+            h.update(f"{cname}/{pname}/{words.shape[0]}".encode())
+            h.update(words.tobytes())
+    return h.hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# File round-trip
+
+
+class CorruptPartitionFile(ValueError):
+    """A partition file failed structural validation or checksum on decode.
+
+    A truncated payload, a torn header, a wrong magic or a checksum mismatch
+    all land here, so callers treat the read as failed rather than serve
+    short or garbage arrays."""
+
+
+def write_partition(path: str, part: Partition) -> None:
+    """One partition to one file; the header carries a checksum of the body."""
+    header = {
+        "partition_id": part.partition_id,
+        "schema": json.loads(part.schema.to_json()),
+        "pages": [],
+    }
+    payload = io.BytesIO()
+    for cname, col in part.columns.items():
+        for pname, words in col.pages.items():
+            header["pages"].append(
+                {"column": cname, "page": pname, "words": int(words.shape[0])}
+            )
+            payload.write(np.ascontiguousarray(words, dtype=np.uint32).tobytes())
+    body = payload.getvalue()
+    # read_partition verifies the checksum when present, so a bit-flipped or
+    # truncated page is detected, never mis-decoded; files without the field
+    # still load
+    header["checksum"] = hashlib.sha256(body).hexdigest()[:16]
+    hjson = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<I", len(hjson)))
+        f.write(hjson)
+        f.write(body)
+
+
+def read_partition(path: str) -> Partition:
+    """The partition in one file, checked; raises ``CorruptPartitionFile``.
+    Pages are read-only views of the file's bytes."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+        if magic != _MAGIC:
+            raise CorruptPartitionFile(
+                f"{path}: bad magic {magic!r} (want {_MAGIC!r})"
+            )
+        raw_hlen = f.read(4)
+        if len(raw_hlen) != 4:
+            raise CorruptPartitionFile(f"{path}: truncated before header length")
+        (hlen,) = struct.unpack("<I", raw_hlen)
+        raw_header = f.read(hlen)
+        if len(raw_header) != hlen:
+            raise CorruptPartitionFile(
+                f"{path}: truncated header ({len(raw_header)} of {hlen} bytes)"
+            )
+        try:
+            header = json.loads(raw_header)
+            schema = PartitionSchema.from_json(json.dumps(header["schema"]))
+            pages = header["pages"]
+            partition_id = header["partition_id"]
+        except (ValueError, KeyError, TypeError) as e:
+            raise CorruptPartitionFile(f"{path}: corrupt header: {e}") from e
+        body = f.read()
+    want_ck = header.get("checksum")
+    if want_ck is not None:
+        got_ck = hashlib.sha256(body).hexdigest()[:16]
+        if got_ck != want_ck:
+            raise CorruptPartitionFile(
+                f"{path}: payload checksum mismatch "
+                f"(stored {want_ck}, computed {got_ck})"
+            )
+    cols: Dict[str, EncodedColumn] = {}
+    cschemas = {c.name: c for c in schema.columns}
+    off = 0
+    for pmeta in pages:
+        try:
+            nwords = int(pmeta["words"])
+            cname = pmeta["column"]
+            pname = pmeta["page"]
+            cs = cschemas[cname]
+        except (KeyError, TypeError, ValueError) as e:
+            raise CorruptPartitionFile(f"{path}: corrupt page table: {e}") from e
+        end = off + nwords * 4
+        if nwords < 0 or end > len(body):
+            raise CorruptPartitionFile(
+                f"{path}: truncated payload (page {cname}/{pname} wants "
+                f"bytes [{off}, {end}) of {len(body)})"
+            )
+        words = np.frombuffer(body, dtype=np.uint32, count=nwords, offset=off)
+        off = end
+        if cname not in cols:
+            cols[cname] = EncodedColumn(cs, {})
+        cols[cname].pages[pname] = words
+    return Partition(partition_id, schema, cols)

@@ -14,6 +14,8 @@ generated features and bucket sizes.  Generation is deterministic in
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Dict
 
 import numpy as np
@@ -134,6 +136,19 @@ class SyntheticRecSysSource:
         self.generated_source = (
             np.arange(cfg.n_generated, dtype=np.int32) % max(cfg.n_dense, 1)
         )
+
+    def fingerprint(self) -> str:
+        """Content identity of the dataset this source generates.
+
+        Generation is deterministic in (cfg, rows, seed), so that triple IS
+        the content: equal parameters give bitwise-equal partitions and the
+        same string in both packages."""
+        payload = json.dumps(
+            {"cfg": dataclasses.asdict(self.cfg), "rows": self.rows,
+             "seed": self.seed},
+            sort_keys=True,
+        )
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
     # -- raw (decoded) view ------------------------------------------------
     def _sparse_block_batch(self, rng, n: int):

@@ -4,13 +4,15 @@ ctypes, and the launch counters.
 A binding checks device, dtype, shape, contiguity and alignment
 (``check``), allocates its output with ``torch.empty``, launches on the
 current stream of the tensor's device without synchronising (``launch``),
-raises if the launch was refused, and adds one to its entry of ``LAUNCHES``.
+raises if the launch was refused, and adds one to its entry of ``LAUNCHES``
+(``count``, under a lock: loader threads launch concurrently).
 Bindings take CUDA tensors only: a tensor anywhere else raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Mapping, Sequence
 
 import torch
@@ -39,9 +41,19 @@ MAX_SHARED_BYTES = 232_448
 P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel `name`; safe across threads."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def check(

@@ -14,11 +14,11 @@ import torch
 from repro_torch.kernels._binding import (
     I32,
     I64,
-    LAUNCHES,
     P,
     bucket_staged,
     check,
     check_grid_y,
+    count,
     launch,
 )
 
@@ -40,5 +40,5 @@ def bucketize(values: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
         launch("bucketize", _SIGNATURES, "presto_bucketize", values.device,
                values.data_ptr(), boundaries.data_ptr(), out.data_ptr(), f, r, m,
                int(staged))
-        LAUNCHES["bucketize"] += 1
+        count("bucketize")
     return out

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._binding import I32, I64, LAUNCHES, P, check, check_grid_y, launch
+from repro_torch.kernels._binding import I32, I64, P, check, check_grid_y, count, launch
 
 _SIGNATURES = {
     "presto_bitunpack": (P, P, I64, I64, I32, P),
@@ -43,7 +43,7 @@ def _bitunpack(words: torch.Tensor, width: int, counter: str) -> torch.Tensor:
     if f * g:
         launch("decode", _SIGNATURES, "presto_bitunpack", words.device,
                words.data_ptr(), out.data_ptr(), f, g, width)
-        LAUNCHES[counter] += 1
+        count(counter)
     return out
 
 
@@ -58,5 +58,5 @@ def bytesplit(words: torch.Tensor) -> torch.Tensor:
     if n:
         launch("decode", _SIGNATURES, "presto_bytesplit", words.device,
                words.data_ptr(), out.data_ptr(), n)
-        LAUNCHES["bytesplit"] += 1
+        count("bytesplit")
     return out

@@ -22,6 +22,7 @@ from repro_torch.kernels._binding import (
     bucket_staged,
     check,
     check_grid_y,
+    count,
     launch,
     reset_launches,
 )
@@ -44,7 +45,7 @@ def fused_dense(words: torch.Tensor) -> torch.Tensor:
     if n:
         launch("fused", _SIGNATURES, "presto_fused_dense", words.device,
                words.data_ptr(), out.data_ptr(), n)
-        LAUNCHES["fused_dense"] += 1
+        count("fused_dense")
     return out
 
 
@@ -63,7 +64,7 @@ def fused_sparse(words: torch.Tensor, params: torch.Tensor, *, width: int) -> to
             "fused", _SIGNATURES, "presto_fused_sparse", words.device,
             words.data_ptr(), params.data_ptr(), out.data_ptr(), f, g, width,
         )
-        LAUNCHES["fused_sparse"] += 1
+        count("fused_sparse")
     return out
 
 
@@ -86,5 +87,5 @@ def fused_gen(
             words.data_ptr(), boundaries.data_ptr(), params.data_ptr(),
             out.data_ptr(), f, g, m, int(staged),
         )
-        LAUNCHES["fused_gen"] += 1
+        count("fused_gen")
     return out

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._binding import I64, LAUNCHES, P, check, launch
+from repro_torch.kernels._binding import I64, P, check, count, launch
 
 _SIGNATURES = {"presto_lognorm": (P, P, I64, P)}
 
@@ -25,5 +25,5 @@ def lognorm(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         launch("lognorm", _SIGNATURES, "presto_lognorm", x.device,
                x.data_ptr(), out.data_ptr(), x.numel())
-        LAUNCHES["lognorm"] += 1
+        count("lognorm")
     return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._binding import I64, LAUNCHES, P, check, check_grid_y, launch
+from repro_torch.kernels._binding import I64, P, check, check_grid_y, count, launch
 
 _SIGNATURES = {"presto_sigridhash": (P, P, P, I64, I64, P)}
 
@@ -28,5 +28,5 @@ def sigridhash(values: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     if f * n:
         launch("sigridhash", _SIGNATURES, "presto_sigridhash", values.device,
                values.data_ptr(), params.data_ptr(), out.data_ptr(), f, n)
-        LAUNCHES["sigridhash"] += 1
+        count("sigridhash")
     return out

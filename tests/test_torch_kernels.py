@@ -280,3 +280,29 @@ def test_plain_sigridhash_params_matches_per_feature_hash():
     got = ref.sigridhash_params(v, params)
     for f in range(3):
         assert torch.equal(got[f], ref.sigridhash(v[f], int(seeds[f]), int(maxes[f])))
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    """Loader threads launch concurrently; every count lands."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import _binding
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    _binding.reset_launches()
+    try:
+        def bump():
+            for _ in range(20_000):
+                _binding.count("fused_dense")
+
+        threads = [threading.Thread(target=bump) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert _binding.LAUNCHES["fused_dense"] == 8 * 20_000
+    finally:
+        sys.setswitchinterval(old)
+        _binding.reset_launches()
