@@ -37,11 +37,24 @@ just after:
   the rest program (``fused_dense`` and ``fused_gen``, no sparse kernel),
   bitwise its cold produce; a seeded transient spec, a torn read and a
   dedup ref outside [0, u) (raised on the host; the context survives);
+* the preprocessing service (``phase_service``): the server entry point
+  ``repro_torch.launch.serve_preprocess.main`` in-process, two tenants of
+  the same content per drill, every delivered batch held bitwise against a
+  solo recompute on the card (``--verify``, whose launches are counted
+  apart from the drill's path): the service drill (cache, megabatch 2,
+  lookahead 2; cache hits and pre-staged bytes required), the dedup drill
+  (dup 4 from a pool of 16 blocks; block assemblies required, each
+  launching exactly ``fused_dense`` and ``fused_gen``) and the storage
+  fault drill (transient, torn, spill and a device offline; no partition
+  quarantined, the context survives); then a worker killed mid-read
+  through the service API, its claims re-issued;
 * training: three reduced-width DLRM steps on the card against the CPU
   from the same weights, then the full RM2 DLRM (63 tables of 500,000 x 128
   floats, ~61 GiB with AdamW, freed after) for 8 train steps on the presto
   path's 8 batches and 3 ingest steps (pages in, the fused kernels inside
-  the step) on one partition, whose loss must fall;
+  the step) on one partition, whose loss must fall, and 4 more steps from
+  the same state through ``TrainingPipeline.run_session``, fed by a
+  service session (2 workers) over the store's 4 classic partition files;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -65,6 +78,8 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -152,6 +167,29 @@ LOGNORM_CASES = ((3, 5, 7), (1027,), (504, 8192))
 MAIN_CONFIG, MAIN_ROWS = "rm2", None  # full width, 8192 rows per partition
 DEDUP_FACTOR = 4  # rows per shared sparse block of the dedup store
 LOADER_RUNS, LOADER_CYCLES = 3, 10  # loader rate: 3 runs of the 4 file pids cycled 10 times
+# the server's drills (serve_preprocess flags beside --rm and --rows), each
+# counted under its own path.  Both tenants of a drill generate the same
+# content, so the second hits the shared cache.  The service drill runs 6
+# partitions with pre-warm off: at 4 with pre-warm on, the window pids are
+# leased by the other tenant's claims and neither tenant pre-stages, as in
+# the reference (tests/test_torch_serve.py::test_drill_sizing_matches_
+# reference runs both packages at those flags), so the (d) guard needs the
+# window that 6 partitions leave.  The dedup drill runs 8: a block assembly
+# needs a pid first claimed after another produce has published its blocks
+# (that test holds both packages to block hits at 8).  The fault drill keeps
+# the default 6, which read 13 times under its seeded schedule, so
+# offline=1@8 fires.  A worker is killed through the service's API after
+# the drills (path "service kill"), where its held claim is certain.
+SERVICE_DRILLS = (
+    ("service", "--jobs 2 --partitions 6 --devices 4 --cache --megabatch 2 --lookahead 2 "
+                "--no-prewarm --verify", "mixed"),
+    ("service dedup", f"--dup-factor {DEDUP_FACTOR} --dup-pool 16 --cache --jobs 2 "
+                      "--partitions 8 --verify", 1),
+    ("service faults", "--jobs 2 --cache --io-faults "
+                       "transient=0.25,corrupt=0.15,spill=0.4,offline=1@8,seed=13 "
+                       "--io-retries 4 --verify", 1),
+)
+PIPELINE_STEPS = 4  # train steps fed by a service session over the 4 classic files
 TRAIN_LR = (3e-4, 2, 100)  # peak, warmup and total steps of the schedule
 TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # record_function ranges of the port
 
@@ -661,10 +699,10 @@ def check_batch(name: str, got: dict, want: dict) -> None:
         check(got[key].dtype == v.dtype and torch.equal(got[key], v), f"{name}: {key} differs")
 
 
-def phase_store(dev, engine, fused_batches: dict):
+def phase_store(dev, engine, fused_batches: dict, root: Path):
     """The file-backed, fault-checked store and the feature cache at full
     rm2 width.  Materializes 4 classic partitions (the main path's pids 0-3)
-    and 4 dedup partitions (dup 4) as files in a temporary directory, times
+    and 4 dedup partitions (dup 4) as files under `root`, times
     host staging in three parts (generation, the file read, page build and
     pin), produces through ``PrefetchLoader`` over the files and over the
     source, runs the feature cache through eviction, spill and promotion,
@@ -673,7 +711,6 @@ def phase_store(dev, engine, fused_batches: dict):
     dedup ref (C9).  Returns the launch counts of the loader and assembly
     paths."""
     import dataclasses
-    import tempfile
 
     from repro_torch.core.featcache import (
         BlockKey, CacheKey, FeatureCache, batch_nbytes, default_spill_store)
@@ -694,187 +731,329 @@ def phase_store(dev, engine, fused_batches: dict):
     dsrc = SyntheticRecSysSource(dcfg, rows=MAIN_ROWS, seed=0)
     dengine = TorchPreStoEngine(TransformSpec.from_source(dsrc))
     by_path = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
-        root = Path(tmp)
-        fstore = PartitionedStore(4, 4, src, root=str(root / "classic"))
-        dstore = PartitionedStore(4, 4, dsrc, root=str(root / "dedup"))
+    fstore = PartitionedStore(4, 4, src, root=str(root / "classic"))
+    dstore = PartitionedStore(4, 4, dsrc, root=str(root / "dedup"))
+    t0 = time.perf_counter()
+    fstore.materialize(pids)
+    dstore.materialize(pids)
+    files = sorted(root.rglob("*.rp"))
+    check(len(files) == 8, f"{len(files)} partition files")
+    print(f"store: materialized 4 classic and 4 dedup rm2 partitions "
+          f"({sum(f.stat().st_size for f in files)} bytes in 8 files, written with "
+          f"write_partition) in {time.perf_counter() - t0:.2f} s")
+
+    # host staging in three parts, host clock, mean over the 4 partitions
+    split = {"generation": [], "file read": [], "page build": [], "pin": []}
+    for pid in pids:
         t0 = time.perf_counter()
-        fstore.materialize(pids)
-        dstore.materialize(pids)
-        files = sorted(root.rglob("*.rp"))
-        check(len(files) == 8, f"{len(files)} partition files")
-        print(f"store: materialized 4 classic and 4 dedup rm2 partitions "
-              f"({sum(f.stat().st_size for f in files)} bytes in 8 files, written with "
-              f"write_partition) in {time.perf_counter() - t0:.2f} s")
+        generated = src.partition(pid)
+        t1 = time.perf_counter()
+        part = fstore.read(pid)
+        t2 = time.perf_counter()
+        pages = pages_from_partition(part, spec)
+        t3 = time.perf_counter()
+        engine.pin_pages(pages)
+        t4 = time.perf_counter()
+        check(partition_digest(part) == partition_digest(generated),
+              f"pid {pid}: the file's pages differ from the source's")
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[key].append(dt)
+    mean = {k: statistics.mean(v) for k, v in split.items()}
+    print("store: host staging per rm2 partition (host clock, mean of 4): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in mean.items())
+          + f"; file read + page build + pin {sum(mean.values()) - mean['generation']:.4f} s "
+          f"against generation + page build + pin {sum(mean.values()) - mean['file read']:.4f} s")
 
-        # host staging in three parts, host clock, mean over the 4 partitions
-        split = {"generation": [], "file read": [], "page build": [], "pin": []}
-        for pid in pids:
-            t0 = time.perf_counter()
-            generated = src.partition(pid)
-            t1 = time.perf_counter()
-            part = fstore.read(pid)
-            t2 = time.perf_counter()
-            pages = pages_from_partition(part, spec)
-            t3 = time.perf_counter()
-            engine.pin_pages(pages)
-            t4 = time.perf_counter()
-            check(partition_digest(part) == partition_digest(generated),
-                  f"pid {pid}: the file's pages differ from the source's")
-            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                split[key].append(dt)
-        mean = {k: statistics.mean(v) for k, v in split.items()}
-        print("store: host staging per rm2 partition (host clock, mean of 4): "
-              + ", ".join(f"{k} {v:.4f} s" for k, v in mean.items())
-              + f"; file read + page build + pin {sum(mean.values()) - mean['generation']:.4f} s "
-              f"against generation + page build + pin {sum(mean.values()) - mean['file read']:.4f} s")
+    # produce through the loader over the files: the counted pass, then
+    # the rate over many produces, and the source's rate beside it
+    got, counts = loader_pass(engine, fstore, pids)
+    by_path["store presto"] = {1: counts}
+    check_launches("store presto", engine.lowered_plan, by_path["store presto"])
+    for pid in pids:
+        check_batch(f"store pid {pid} (file)", got[pid], fused_batches[pid])
+    file_rates = [loader_rate(engine, fstore, pids, fused_batches, LOADER_CYCLES)
+                  for _ in range(LOADER_RUNS)]
+    src_rate = loader_rate(engine, PartitionedStore(4, 4, src), pids, fused_batches, 2)
+    print(f"store: PrefetchLoader (2 workers, depth 2) under presto, wall clock, after a "
+          f"warm pass: from the files {LOADER_RUNS} runs of {4 * LOADER_CYCLES} produces "
+          f"(the 4 pids cycled {LOADER_CYCLES} times) delivered "
+          + ", ".join(f"{r:.1f}" for r in file_rates)
+          + f" samples/s (median {statistics.median(file_rates):.1f}, spread "
+          f"{(max(file_rates) - min(file_rates)) / statistics.median(file_rates):.3f} of it); "
+          f"from the synthetic source 8 produces delivered {src_rate:.1f} samples/s; "
+          f"launches of the counted pass {counts}; every batch bitwise the main path's")
 
-        # produce through the loader over the files: the counted pass, then
-        # the rate over many produces, and the source's rate beside it
-        got, counts = loader_pass(engine, fstore, pids)
-        by_path["store presto"] = {1: counts}
-        check_launches("store presto", engine.lowered_plan, by_path["store presto"])
-        for pid in pids:
-            check_batch(f"store pid {pid} (file)", got[pid], fused_batches[pid])
-        file_rates = [loader_rate(engine, fstore, pids, fused_batches, LOADER_CYCLES)
-                      for _ in range(LOADER_RUNS)]
-        src_rate = loader_rate(engine, PartitionedStore(4, 4, src), pids, fused_batches, 2)
-        print(f"store: PrefetchLoader (2 workers, depth 2) under presto, wall clock, after a "
-              f"warm pass: from the files {LOADER_RUNS} runs of {4 * LOADER_CYCLES} produces "
-              f"(the 4 pids cycled {LOADER_CYCLES} times) delivered "
-              + ", ".join(f"{r:.1f}" for r in file_rates)
-              + f" samples/s (median {statistics.median(file_rates):.1f}, spread "
-              f"{(max(file_rates) - min(file_rates)) / statistics.median(file_rates):.3f} of it); "
-              f"from the synthetic source 8 produces delivered {src_rate:.1f} samples/s; "
-              f"launches of the counted pass {counts}; every batch bitwise the main path's")
+    # the feature cache: capacity 2 batches, eviction spills, spill hits promote
+    one = batch_nbytes(got[0])
+    check(one == sum(v.numel() * v.element_size() for v in got[0].values()) > 0,
+          "batch_nbytes of a device batch")
+    spill = default_spill_store(4)
+    cache = FeatureCache(2 * one, spill=spill, device=dev)
+    keys = {pid: CacheKey(fstore.partition_fingerprint(pid), engine.cache_signature(),
+                          engine.placement) for pid in pids}
+    for pid in pids:
+        status, _ = cache.begin(keys[pid])
+        check(status == "produce", f"cache pid {pid}: cold probe {status}")
+        cache.fulfill(keys[pid], got[pid])
+    st = cache.stats()
+    check(st.evictions == 2 and len(spill) == 2 and st.resident_bytes == 2 * one,
+          f"cache after the cold pass: {st}")
+    t0 = time.perf_counter()
+    for pid in pids:
+        status, hit = cache.begin(keys[pid])
+        check(status == "hit", f"cache pid {pid}: second pass {status}")
+        check(all(v.device == dev for v in hit.values()), "a hit left the card")
+        check_batch(f"cache hit pid {pid}", hit, fused_batches[pid])
+    dt_hits = time.perf_counter() - t0
+    status, hit = cache.begin(keys[3])  # just promoted: a memory hit
+    check(status == "hit" and all(hit[k] is v for k, v in cache.get(keys[3]).items()),
+          "a memory hit copied the batch")
+    st = cache.stats()
+    check(st.hits == 6 and st.spill_hits == 4 and st.misses == 4
+          and st.resident_bytes == 2 * one and st.entries == 2,
+          f"cache after the second pass: {st}")
+    resident = torch.cuda.memory_allocated(dev)
+    print(f"store: feature cache of 2 batches ({2 * one} device bytes resident, "
+          f"{one} per batch by numel * element_size; memory_allocated {resident}); "
+          f"second pass {st.hits - 2} hits ({st.spill_hits} spill hits promoted to the "
+          f"card) in {dt_hits:.3f} s, evictions {st.evictions}, spilled {st.spilled_entries} "
+          f"blocks of {st.spilled_bytes} bytes; every hit bitwise the cold batch")
+    del cache, spill, hit
 
-        # the feature cache: capacity 2 batches, eviction spills, spill hits promote
-        one = batch_nbytes(got[0])
-        check(one == sum(v.numel() * v.element_size() for v in got[0].values()) > 0,
-              "batch_nbytes of a device batch")
-        spill = default_spill_store(4)
-        cache = FeatureCache(2 * one, spill=spill, device=dev)
-        keys = {pid: CacheKey(fstore.partition_fingerprint(pid), engine.cache_signature(),
-                              engine.placement) for pid in pids}
-        for pid in pids:
-            status, _ = cache.begin(keys[pid])
-            check(status == "produce", f"cache pid {pid}: cold probe {status}")
-            cache.fulfill(keys[pid], got[pid])
-        st = cache.stats()
-        check(st.evictions == 2 and len(spill) == 2 and st.resident_bytes == 2 * one,
-              f"cache after the cold pass: {st}")
-        t0 = time.perf_counter()
-        for pid in pids:
-            status, hit = cache.begin(keys[pid])
-            check(status == "hit", f"cache pid {pid}: second pass {status}")
-            check(all(v.device == dev for v in hit.values()), "a hit left the card")
-            check_batch(f"cache hit pid {pid}", hit, fused_batches[pid])
-        dt_hits = time.perf_counter() - t0
-        status, hit = cache.begin(keys[3])  # just promoted: a memory hit
-        check(status == "hit" and all(hit[k] is v for k, v in cache.get(keys[3]).items()),
-              "a memory hit copied the batch")
-        st = cache.stats()
-        check(st.hits == 6 and st.spill_hits == 4 and st.misses == 4
-              and st.resident_bytes == 2 * one and st.entries == 2,
-              f"cache after the second pass: {st}")
-        resident = torch.cuda.memory_allocated(dev)
-        print(f"store: feature cache of 2 batches ({2 * one} device bytes resident, "
-              f"{one} per batch by numel * element_size; memory_allocated {resident}); "
-              f"second pass {st.hits - 2} hits ({st.spill_hits} spill hits promoted to the "
-              f"card) in {dt_hits:.3f} s, evictions {st.evictions}, spilled {st.spilled_entries} "
-              f"blocks of {st.spilled_bytes} bytes; every hit bitwise the cold batch")
-        del cache, spill, hit
-
-        # block assembly: extract -> put_block -> assemble_from_blocks on the card
-        bcache = FeatureCache(2 * one, device=dev)
-        assembled, dcold, walls = {}, {}, {"assemble": [], "cold": []}
-        for pid in pids:
-            cold = dcold[pid] = dengine.produce_batch(dstore, pid)
-            refs, fps = dstore.block_refs(pid), dstore.block_fingerprints(pid)
-            ids, lens = dengine.extract_blocks(cold, refs)
-            bkeys = [BlockKey(fp, dengine.cache_signature(), dengine.placement) for fp in fps]
-            for key, i, n in zip(bkeys, ids, lens):
-                bcache.put_block(key, i, n)
-            blocks = bcache.get_blocks(bkeys)
-            check(blocks is not None, f"dedup pid {pid}: blocks missing")
-            pages = dengine.stage_partition(dstore, pid)
-            torch.cuda.synchronize()
-            fused.reset_launches()
-            t0 = time.perf_counter()
-            batch = dengine.assemble_from_blocks(pages, *blocks)
-            walls["assemble"].append(time.perf_counter() - t0)
-            counts = dict(fused.LAUNCHES)
-            t0 = time.perf_counter()  # the whole Transform from the same staged pages
-            dengine.preprocess_local(dengine.put_pages(dengine.pin_pages(pages)))
-            torch.cuda.synchronize()
-            walls["cold"].append(time.perf_counter() - t0)
-            assembled[pid] = counts
-            check(counts["fused_dense"] == 1 and counts["fused_gen"] == 1
-                  and sum(counts.values()) == 2, f"assemble pid {pid}: launches {counts}")
-            check_batch(f"assembled dedup pid {pid}", batch, cold)
-        by_path["assemble"] = {1: {n: sum(c[n] for c in assembled.values())
-                                   for n in assembled[0]}}
-        bst = bcache.stats()
-        print(f"store: block assembly of 4 dedup partitions ({len(fps)} blocks each, "
-              f"{bst.block_hits} block hits): every batch bitwise its cold produce; the rest "
-              f"program launched {by_path['assemble'][1]}; from staged pages, assembly "
-              f"{1e3 * statistics.mean(walls['assemble']):.3f} ms against the whole Transform "
-              f"{1e3 * statistics.mean(walls['cold']):.3f} ms (host clock, pin and copy-in "
-              f"included, mean of 4)")
-        del bcache
-
-        # faults: seeded transients retry to the clean bytes
-        inj = parse_iofault_spec("transient=0.5,seed=7")
-        fault_store = PartitionedStore(4, 4, src, root=str(root / "classic"), fault_injector=inj)
-        transients = 0
-        for pid in pids:
-            for _ in range(32):
-                try:
-                    batch = engine.produce_batch(fault_store, pid)
-                    break
-                except TransientReadError:
-                    transients += 1
-            else:
-                check(False, f"pid {pid} never read through transient=0.5")
-            check_batch(f"transient pid {pid}", batch, fused_batches[pid])
-        check(transients > 0 and inj.summary() == {"transient": transients},
-              f"transients {transients}, injected {inj.summary()}")
-
-        # a torn read raises and delivers nothing: no kernel runs
-        torn = PartitionedStore(4, 4, src, root=str(root / "classic"),
-                                fault_injector=IoFaultInjector(seed=2, corrupt=1.0))
-        fused.reset_launches()
-        try:
-            engine.produce_batch(torn, 1)
-            check(False, "a torn read was delivered")
-        except CorruptPartitionError as e:
-            check(e.retryable and e.pid == 1, f"torn read error {e!r}")
-        check(sum(fused.LAUNCHES.values()) == 0, f"a torn read launched {fused.LAUNCHES}")
-
-        # C9: a dedup ref >= u raises on the host; the context survives
-        part = dsrc.partition(0)
-        u = part.schema.unique_rows
-        refs = np.array(part.columns[REFS_COLUMN].pages["refs"], dtype=np.uint32)
-        refs[5] = u
-        cols = dict(part.columns)
-        cols[REFS_COLUMN] = EncodedColumn(part.columns[REFS_COLUMN].schema, {"refs": refs})
-        bad_store = PartitionedStore(1, 1, root=str(root / "bad"))
-        write_partition(bad_store._path(0), Partition(0, part.schema, cols))
-        fused.reset_launches()
-        try:
-            dengine.produce_batch(bad_store, 0)
-            check(False, "a dedup ref >= u was delivered")
-        except CorruptPartitionError as e:
-            check(not e.retryable and e.pid == 0, f"C9 error {e!r}")
-        check(sum(fused.LAUNCHES.values()) == 0, f"the bad ref launched {fused.LAUNCHES}")
-        after = dengine.produce_batch(dstore, 0)  # a launch on the same context
+    # block assembly: extract -> put_block -> assemble_from_blocks on the card
+    bcache = FeatureCache(2 * one, device=dev)
+    assembled, dcold, walls = {}, {}, {"assemble": [], "cold": []}
+    for pid in pids:
+        cold = dcold[pid] = dengine.produce_batch(dstore, pid)
+        refs, fps = dstore.block_refs(pid), dstore.block_fingerprints(pid)
+        ids, lens = dengine.extract_blocks(cold, refs)
+        bkeys = [BlockKey(fp, dengine.cache_signature(), dengine.placement) for fp in fps]
+        for key, i, n in zip(bkeys, ids, lens):
+            bcache.put_block(key, i, n)
+        blocks = bcache.get_blocks(bkeys)
+        check(blocks is not None, f"dedup pid {pid}: blocks missing")
+        pages = dengine.stage_partition(dstore, pid)
         torch.cuda.synchronize()
-        check(fused.LAUNCHES["fused_sparse"] == 1, "no kernel ran after the bad ref")
-        check_batch("dedup pid 0 after the bad ref", after, dcold[0])
-        print(f"store: faults: transient=0.5 (seed 7) retried {transients} read(s) to bitwise "
-              f"clean batches; a torn read raised CorruptPartitionError (retryable) with no "
-              f"launch; a dedup ref = u raised CorruptPartitionError (not retryable) on the "
-              f"host with no launch, and the next produce ran on the same context")
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        batch = dengine.assemble_from_blocks(pages, *blocks)
+        walls["assemble"].append(time.perf_counter() - t0)
+        counts = dict(fused.LAUNCHES)
+        t0 = time.perf_counter()  # the whole Transform from the same staged pages
+        dengine.preprocess_local(dengine.put_pages(dengine.pin_pages(pages)))
+        torch.cuda.synchronize()
+        walls["cold"].append(time.perf_counter() - t0)
+        assembled[pid] = counts
+        check(counts["fused_dense"] == 1 and counts["fused_gen"] == 1
+              and sum(counts.values()) == 2, f"assemble pid {pid}: launches {counts}")
+        check_batch(f"assembled dedup pid {pid}", batch, cold)
+    by_path["assemble"] = {1: {n: sum(c[n] for c in assembled.values())
+                               for n in assembled[0]}}
+    bst = bcache.stats()
+    print(f"store: block assembly of 4 dedup partitions ({len(fps)} blocks each, "
+          f"{bst.block_hits} block hits): every batch bitwise its cold produce; the rest "
+          f"program launched {by_path['assemble'][1]}; from staged pages, assembly "
+          f"{1e3 * statistics.mean(walls['assemble']):.3f} ms against the whole Transform "
+          f"{1e3 * statistics.mean(walls['cold']):.3f} ms (host clock, pin and copy-in "
+          f"included, mean of 4)")
+    del bcache
+
+    # faults: seeded transients retry to the clean bytes
+    inj = parse_iofault_spec("transient=0.5,seed=7")
+    fault_store = PartitionedStore(4, 4, src, root=str(root / "classic"), fault_injector=inj)
+    transients = 0
+    for pid in pids:
+        for _ in range(32):
+            try:
+                batch = engine.produce_batch(fault_store, pid)
+                break
+            except TransientReadError:
+                transients += 1
+        else:
+            check(False, f"pid {pid} never read through transient=0.5")
+        check_batch(f"transient pid {pid}", batch, fused_batches[pid])
+    check(transients > 0 and inj.summary() == {"transient": transients},
+          f"transients {transients}, injected {inj.summary()}")
+
+    # a torn read raises and delivers nothing: no kernel runs
+    torn = PartitionedStore(4, 4, src, root=str(root / "classic"),
+                            fault_injector=IoFaultInjector(seed=2, corrupt=1.0))
+    fused.reset_launches()
+    try:
+        engine.produce_batch(torn, 1)
+        check(False, "a torn read was delivered")
+    except CorruptPartitionError as e:
+        check(e.retryable and e.pid == 1, f"torn read error {e!r}")
+    check(sum(fused.LAUNCHES.values()) == 0, f"a torn read launched {fused.LAUNCHES}")
+
+    # C9: a dedup ref >= u raises on the host; the context survives
+    part = dsrc.partition(0)
+    u = part.schema.unique_rows
+    refs = np.array(part.columns[REFS_COLUMN].pages["refs"], dtype=np.uint32)
+    refs[5] = u
+    cols = dict(part.columns)
+    cols[REFS_COLUMN] = EncodedColumn(part.columns[REFS_COLUMN].schema, {"refs": refs})
+    bad_store = PartitionedStore(1, 1, root=str(root / "bad"))
+    write_partition(bad_store._path(0), Partition(0, part.schema, cols))
+    fused.reset_launches()
+    try:
+        dengine.produce_batch(bad_store, 0)
+        check(False, "a dedup ref >= u was delivered")
+    except CorruptPartitionError as e:
+        check(not e.retryable and e.pid == 0, f"C9 error {e!r}")
+    check(sum(fused.LAUNCHES.values()) == 0, f"the bad ref launched {fused.LAUNCHES}")
+    after = dengine.produce_batch(dstore, 0)  # a launch on the same context
+    torch.cuda.synchronize()
+    check(fused.LAUNCHES["fused_sparse"] == 1, "no kernel ran after the bad ref")
+    check_batch("dedup pid 0 after the bad ref", after, dcold[0])
+    print(f"store: faults: transient=0.5 (seed 7) retried {transients} read(s) to bitwise "
+          f"clean batches; a torn read raised CorruptPartitionError (retryable) with no "
+          f"launch; a dedup ref = u raised CorruptPartitionError (not retryable) on the "
+          f"host with no launch, and the next produce ran on the same context")
+    return by_path
+
+
+def event_counts(path: Path) -> dict:
+    """Event kinds of a ``--events-out`` file, counted."""
+    counts = {}
+    for ev in json.loads(path.read_text()):
+        counts[ev["kind"]] = counts.get(ev["kind"], 0) + 1
+    return counts
+
+
+def run_drill(serve_preprocess, argv: list):
+    """``serve_preprocess.main(argv)`` with the launch counts of the
+    service's own run and of its ``--verify`` recompute read apart: the
+    counters are read and zeroed as the verify starts, when every session
+    has drained and the pool is closed.  Returns the per-job stats and the
+    two counts."""
+    from repro_torch.kernels import fused
+
+    real, counts = serve_preprocess.verify_delivered, {}
+
+    def counted(*args, **kwargs):
+        counts["service"] = dict(fused.LAUNCHES)
+        fused.reset_launches()
+        real(*args, **kwargs)
+        counts["verify"] = dict(fused.LAUNCHES)
+
+    serve_preprocess.verify_delivered = counted
+    try:
+        fused.reset_launches()
+        stats = serve_preprocess.main(argv)
+    finally:
+        serve_preprocess.verify_delivered = real
+    check(set(counts) == {"service", "verify"}, f"{argv}: the verify did not run")
+    return stats, counts["service"], counts["verify"]
+
+
+def phase_service(engine, files: Path, fused_batches: dict, root: Path) -> dict:
+    """The preprocessing service at full rm2 width: the server entry point
+    (``serve_preprocess.main``) in-process for each of SERVICE_DRILLS, every
+    batch held bitwise against a solo recompute on the card (``--verify``),
+    then a worker killed mid-read through the service's own API.  Returns
+    each path's launch counts; a drill's path counts only the service's
+    own produces, since its verify's solo recomputes are counted apart."""
+    from repro_torch.core.service import JobSpec, PreprocessingService
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.kernels import fused
+    from repro_torch.launch import serve_preprocess
+
+    rows = engine.spec.cfg.rows_per_partition if MAIN_ROWS is None else MAIN_ROWS
+    plan_kernels = {STAGE_KERNELS[st.kind] for st in engine.lowered_plan.stages
+                    if st.kind in STAGE_KERNELS}
+    by_path = {}
+    for path, flags, k in SERVICE_DRILLS:
+        events = root / f"events_{path.replace(' ', '_')}.json"
+        argv = ["--rm", MAIN_CONFIG, "--rows", str(rows), *flags.split(),
+                "--events-out", str(events)]
+        print(f"{path}: serve_preprocess {' '.join(argv)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, counts, verify = run_drill(serve_preprocess, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[path] = {k: counts}
+        check_launches(path, engine.lowered_plan, by_path[path])
+        # the verify is one solo produce per (job, pid), each launching every
+        # kernel of the plan once
+        solo = sum(st.total for st in stats.values())
+        check(verify == {n: solo if n in plan_kernels else 0 for n in verify},
+              f"{path}: the verify's {solo} solo produces launched {verify}")
+        kinds = event_counts(events)
+        for name, st in stats.items():
+            check(st.done and not st.cancelled and st.delivered == st.total
+                  and st.quarantined == 0, f"{path}: {name} ended {st}")
+        total = {f: sum(getattr(st, f) for st in stats.values())
+                 for f in ("cache_hits", "block_hits", "blocks_published", "reissues",
+                           "retries", "failovers")}
+        staged = max(st.staged_bytes_peak for st in stats.values())
+        rates = ", ".join(f"{name} {st.achieved_samples_per_s:.1f}" for name, st in stats.items())
+        print(f"{path}: {wall:.2f} s for the drill and its verify; delivered samples/s per "
+              f"tenant (wall clock) {rates}; {total}; staged_bytes_peak {staged}; events "
+              f"{kinds}; launches by the service {counts}, by the verify {verify}")
+        check(total["cache_hits"] > 0, f"{path}: the second tenant never hit the cache")
+        if path == "service":
+            # the (d) guard: pages are sized, so the lookahead pre-stages
+            check(staged > 0, f"{path}: nothing was pre-staged at lookahead 2")
+        if path == "service dedup":
+            check(total["block_hits"] > 0, f"{path}: no batch was assembled from blocks")
+            # every assembly ran the rest program (fused_dense, fused_gen) and
+            # no sparse kernel; every other produce ran all three
+            extra = counts["fused_dense"] - counts["fused_sparse"]
+            check(extra == total["block_hits"] and counts["fused_gen"] == counts["fused_dense"],
+                  f"{path}: {total['block_hits']} assemblies, launches {counts}")
+        if path == "service faults":
+            check(kinds.get("device_offline") == 1 and total["retries"] > 0,
+                  f"{path}: the fault schedule did not fire ({kinds})")
+            after = engine.produce_batch(PartitionedStore(4, 4, root=str(files)), 0)
+            check_batch("pid 0 after the fault drill", after, fused_batches[0])
+
+    # a worker killed mid-read through the service API: its claim re-issues
+    # to a live worker, and the session still delivers the main path's bytes
+    class GatedStore(PartitionedStore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.caught, self.release, self.holder = threading.Event(), threading.Event(), None
+            self._gate = threading.Lock()
+
+        def read(self, pid):
+            with self._gate:
+                hold = pid == 0 and not self.caught.is_set()
+                if hold:
+                    self.holder = threading.current_thread().name
+                    self.caught.set()
+            if hold:
+                check(self.release.wait(timeout=60), "the gated read was never released")
+            return super().read(pid)
+
+    store = GatedStore(4, 4, root=str(files))
+    svc = PreprocessingService(num_workers=3)
+    fused.reset_launches()
+    try:
+        sess = svc.submit(JobSpec(name="kill", partitions=range(4), engine=engine, store=store,
+                                  units=3, straggler_timeout=60.0, megabatch=2))
+        check(store.caught.wait(timeout=60), "no worker reached the gated read")
+        check(svc.kill_worker(int(store.holder.rsplit("-", 1)[1])), "kill_worker refused")
+        store.release.set()
+        got = {}
+        for pid, mb in sess:
+            got[pid] = mb
+    finally:
+        store.release.set()
+        svc.close()
+    torch.cuda.synchronize()
+    kill = dict(fused.LAUNCHES)
+    by_path["service kill"] = {"mixed": kill}  # megabatch 2: chunks of K <= 2
+    check_launches("service kill", engine.lowered_plan, by_path["service kill"])
+    st = sess.stats()
+    check(st.done and st.reissues >= 1 and sorted(got) == [0, 1, 2, 3],
+          f"kill mid-read: {st}")
+    for pid, mb in got.items():
+        check_batch(f"kill mid-read pid {pid}", mb, fused_batches[pid])
+    print(f"service kill: worker {store.holder} killed mid-read of pid 0 (service API, 3 workers, "
+          f"megabatch 2, 4 file partitions): {st.reissues} claim(s) re-issued, every batch "
+          f"bitwise the main path's; launches {kill}")
     return by_path
 
 
@@ -945,17 +1124,24 @@ def phase_train_parity(dev) -> None:
           f"lr/100 but for noise (largest difference {worst:.3g})")
 
 
-def phase_train(dev, batches: list, engine, store) -> dict:
+def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
     """The DLRM at full width on the card: 8 ``make_train_step`` steps with
     AdamW on the main path's 8 delivered batches, then 3
     ``make_train_step_with_ingest`` steps on one staged partition (the
     fused kernels inside the step).  The loss must be finite and fall on the
     repeated partition.  Prints the step time (CUDA events, median), the
-    profiler's device time split, samples/s and peak memory.  Frees the
-    model, its gradients and the optimizer's moments before it returns the
-    ingest steps' launch counts."""
+    profiler's device time split, samples/s and peak memory.  Then
+    ``TrainingPipeline.run_session`` trains on, from the same model and
+    state, fed by a service session (2 workers) over the 4 classic rm2
+    partition files under `files`: consumer utilization, starved seconds,
+    step times and losses.  Frees the model, its gradients and the
+    optimizer's moments before it returns the ingest steps' and the
+    pipeline's launch counts by path."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.pipeline import TrainingPipeline
+    from repro_torch.core.service import JobSpec, PreprocessingService
+    from repro_torch.data.storage import PartitionedStore
     from repro_torch.kernels import fused
     from repro_torch.models import recsys as RS
     from repro_torch.train import make_train_step, make_train_step_with_ingest
@@ -1026,10 +1212,44 @@ def phase_train(dev, batches: list, engine, store) -> dict:
     print(f"train: peak memory {peak} bytes ({peak / 2**30:.2f} GiB) of "
           f"{torch.cuda.get_device_properties(dev).total_memory} (max_memory_allocated); "
           f"card {card_line()}")
-    del model, state, opt, step, ingest, metrics, pages
+
+    # the Fig. 9 loop: the trainer drains a service session over the files
+    marks = []
+
+    def timed_step(state, mb):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step(state, mb)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    with PreprocessingService(num_workers=2) as svc:
+        session = svc.submit(JobSpec(
+            name="rm2-files", partitions=range(PIPELINE_STEPS), engine=engine,
+            store=PartitionedStore(4, 4, root=str(files)), units=2))
+        state, pstats, pmetrics = TrainingPipeline(train_step=timed_step).run_session(
+            state, session)
+    torch.cuda.synchronize()
+    pipe_launches = dict(fused.LAUNCHES)
+    check_launches("pipeline", engine.lowered_plan, {1: pipe_launches})
+    plosses = [m["loss"] for m in pmetrics]
+    check(pstats.steps == PIPELINE_STEPS and all(np.isfinite(plosses)),
+          f"pipeline: {pstats.steps} steps, losses {plosses}")
+    fed_ms = [a.elapsed_time(b) for a, b in marks]
+    print(f"pipeline: TrainingPipeline.run_session over a service session (2 workers, "
+          f"{PIPELINE_STEPS} rm2 partition files): {pstats.steps} steps, losses {plosses}; "
+          f"consumer utilization {pstats.utilization:.4f}, starved {pstats.starved_time_s:.4f} s, "
+          f"train {pstats.train_time_s:.4f} s of {pstats.wall_time_s:.4f} s wall, reissues "
+          f"{pstats.reissues}; step times fed by the session {[round(t, 3) for t in fed_ms]} "
+          f"ms (CUDA events; median {statistics.median(fed_ms):.3f}) against {step_ms:.3f} ms "
+          f"for the direct step above; launches {pipe_launches}; card {card_line()}")
+    del model, state, opt, step, ingest, metrics, pages, session, pmetrics
     torch.cuda.empty_cache()
     check(torch.cuda.memory_allocated() < 4 << 30, "the trainer's memory was not freed")
-    return {1: launches}
+    return {"ingest": {1: launches}, "pipeline": {1: pipe_launches}}
 
 
 def train_split(prof) -> float | None:
@@ -1451,16 +1671,23 @@ def main() -> int:
     train_batches = [fused_batches[pid] for pid in range(8)]
     dedup_engines, dedup_by_path, dedup_pages = phase_dedup(dev)
     torch.cuda.synchronize()
-    store_by_path = phase_store(dev, engine, fused_batches)
-    torch.cuda.synchronize()
-    del fused_batches
-    phase_train_parity(dev)
-    ingest_launches = phase_train(dev, train_batches, engine, store)
+    # the store's files live until the trainer has read them through the service
+    files_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    try:
+        root = Path(files_dir.name)
+        store_by_path = phase_store(dev, engine, fused_batches, root)
+        torch.cuda.synchronize()
+        service_by_path = phase_service(engine, root / "classic", fused_batches, root)
+        torch.cuda.synchronize()
+        del fused_batches
+        phase_train_parity(dev)
+        train_by_path = phase_train(dev, train_batches, engine, store, root / "classic")
+    finally:
+        files_dir.cleanup()
     del train_batches
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
-               **store_by_path,
-               "ingest": ingest_launches}
+               **store_by_path, **service_by_path, **train_by_path}
     totals = {n: sum(path_totals(by_k)[n] for by_k in by_path.values()) for n in launches[1]}
     for name, n in totals.items():
         check(n > 0, f"{name} was never launched")

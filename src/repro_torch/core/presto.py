@@ -16,8 +16,12 @@ Produce path: the host reads a partition and builds its numpy pages, copies
 them into pinned memory, and the device copies them in with
 ``non_blocking=True`` on the current stream, where the kernels then run.
 Nothing synchronises until delivery, which waits on one CUDA event per
-chunk.  ``produce_stream`` stages the next chunk (read, page build, pin) on a
-thread while the current chunk's copies and kernels run.
+chunk: ``launch`` dispatches a staged chunk of K >= 1 partitions and returns
+its batches with the event, ``deliver`` waits on it.  That pair is the one
+dispatch path of ``produce_batches``, ``produce_stream`` and the service's
+pool workers (``core.service``).  ``produce_stream`` stages the next chunk
+(read, page build, pin) on a thread while the current chunk's copies and
+kernels run.
 
 The port has no jit, so nothing is compiled or shared between engines:
 each engine runs its own lowered plan, and the reference's process-wide
@@ -232,9 +236,14 @@ class TorchPreStoEngine:
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
-    def _launch(self, pinned: HostPages) -> Tuple[Tuple[MiniBatch, ...], Optional[torch.cuda.Event]]:
-        """Copy one staged chunk in and queue its kernels; returns the
-        batches and the event that marks them done (None on the CPU)."""
+    def launch(self, pinned: HostPages) -> Tuple[Tuple[MiniBatch, ...], Optional[torch.cuda.Event]]:
+        """Dispatch one staged chunk: copy its pinned, leading-axis stacked
+        pages in (K >= 1 partitions, K = 1 included) and queue its kernels
+        on the device's current stream, without blocking.  Returns the K
+        batches and the event that marks them done (None on the CPU, where
+        the batches are complete on return); ``deliver`` waits on it.  The
+        one dispatch pair of every producer: ``produce_batches``,
+        ``produce_stream`` and the service's pool workers."""
         with self._on_device():
             batches = self.preprocess_megabatch(self.put_pages(pinned))
             if self.device.type == "cpu":
@@ -244,7 +253,9 @@ class TorchPreStoEngine:
         return batches, done
 
     @staticmethod
-    def _deliver(done: Optional[torch.cuda.Event]) -> None:
+    def deliver(done: Optional[torch.cuda.Event]) -> None:
+        """Block the calling thread until a ``launch``'s batches are
+        complete on the device."""
         if done is not None:
             done.synchronize()
 
@@ -263,8 +274,8 @@ class TorchPreStoEngine:
         pids = list(pids)
         if len(pids) > 1 and not self.lowered_plan.megabatch_safe():
             return [self.produce_batch(store, pid) for pid in pids]
-        batches, done = self._launch(self.pin_pages(self.stage_megabatch(store, pids)))
-        self._deliver(done)
+        batches, done = self.launch(self.pin_pages(self.stage_megabatch(store, pids)))
+        self.deliver(done)
         return list(batches)
 
     def produce_stream(
@@ -300,8 +311,8 @@ class TorchPreStoEngine:
 
         if not overlap:
             for chunk in chunks:
-                batches, done = self._launch(stage(chunk))
-                self._deliver(done)
+                batches, done = self.launch(stage(chunk))
+                self.deliver(done)
                 yield from zip(chunk, batches)
             return
         with ThreadPoolExecutor(max_workers=1, thread_name_prefix="presto-stage") as stager:
@@ -316,9 +327,9 @@ class TorchPreStoEngine:
 
             top_up()
             for chunk in chunks:
-                batches, done = self._launch(pending.pop(0).result())
+                batches, done = self.launch(pending.pop(0).result())
                 top_up()  # refill behind the in-flight copies and kernels
-                self._deliver(done)  # block only at delivery
+                self.deliver(done)  # block only at delivery
                 yield from zip(chunk, batches)
 
     def pages_struct(self, rows: int) -> Dict[str, ShapeDtype]:
