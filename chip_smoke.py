@@ -55,6 +55,26 @@ just after:
   the step) on one partition, whose loss must fall, and 4 more steps from
   the same state through ``TrainingPipeline.run_session``, fed by a
   service session (2 workers) over the store's 4 classic partition files;
+* the training driver (``phase_driver``): ``repro_torch.launch.train.main``
+  at full rm2 width (4 steps fed by a 2-worker service session over 6
+  source partitions), then at full rm1 width with ``--ckpt-dir`` under
+  ``build/`` (a 29.99 GB checkpoint: rm2's, 45.11 GiB, is more than the
+  45 GiB one run may write to the GPU machine's disk); the free disk and
+  host memory are checked first, and the host snapshot and the writes
+  timed;
+* the restore (``phase_restore``): that checkpoint restored in place into
+  a zeroed state of the same structure, every leaf held bitwise against
+  its ``.npy``, the peak of device memory within 1 GiB of the state;
+* the elastic drill (``phase_elastic``): ``ElasticTrainer`` over the
+  driver's step at rm2's feature geometry with 25,000-row tables,
+  checkpoints every 2 steps, a failure at step 3 whose state is released
+  while the exception is held, a second incarnation that restores step 2
+  and ends at step 4 within 1e-5 of a run that never failed;
+* the examples (``phase_examples``): ``repro_torch.examples.quickstart``,
+  ``train_recsys_e2e --steps 40`` (its loss must fall) and the kernel
+  level of ``presto_vs_disagg`` (rm5, 1,024 rows, fused against unfused);
+* the simulator (``phase_sim``): one seeded ``SimHarness`` schedule of
+  1,000 sessions with kills and a join, replayed twice, the traces equal;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -74,7 +94,9 @@ line.  Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -192,6 +214,18 @@ SERVICE_DRILLS = (
 PIPELINE_STEPS = 4  # train steps fed by a service session over the 4 classic files
 TRAIN_LR = (3e-4, 2, 100)  # peak, warmup and total steps of the schedule
 TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # record_function ranges of the port
+# the training driver at full width (launch.train --mode recsys): 4 steps fed
+# by 2 service workers over 6 source partitions, rm2 and then CKPT_CONFIG with
+# its checkpoint.  A call of the GPU machine may write 45 GiB to its disk, and
+# rm2's checkpoint alone is 45.11 GiB; rm1's is 27.93 GiB.
+DRIVER_PARTITIONS, DRIVER_STEPS = 6, 4
+CKPT_CONFIG = "rm1"
+# the elastic drill: RM2's feature geometry with tables cut from 500,000 to
+# 25,000 rows (205.9M parameters, 2.47 GB checkpoints, written 3 times), 4
+# steps, a failure at 3; the writes of the whole run stay under the disk's cap
+ELASTIC_ROWS, ELASTIC_STEPS = 25_000, 4
+E2E_STEPS = 40  # train_recsys_e2e's steps on the card
+SIM_SEED = 11
 
 
 class SmokeFailure(RuntimeError):
@@ -1065,6 +1099,14 @@ def train_config():
     return get_recsys(MAIN_CONFIG)
 
 
+def ckpt_config():
+    """The model whose full-width checkpoint phase_driver writes and
+    phase_restore reads back."""
+    from repro_torch.configs.registry import get_recsys
+
+    return get_recsys(CKPT_CONFIG)
+
+
 def train_setup(cfg, model):
     """AdamW over TRAIN_LR's schedule, the state around `model`, and the
     DLRM's loss."""
@@ -1286,6 +1328,275 @@ def train_split(prof) -> float | None:
     for key, count, t in sorted(kernels, key=lambda r: -r[2])[:12]:
         print(f"train split:   {t / 1e3:9.3f} ms  x{count}  {key[:90]}")
     return busy / 1e3
+
+
+def host_free_bytes() -> int:
+    """The host's available memory (``MemAvailable``), in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise SmokeFailure("no MemAvailable in /proc/meminfo")
+
+
+def state_bytes(cfg) -> int:
+    """Bytes of a checkpoint of `cfg`'s TrainState: parameters and the two
+    AdamW moments in f32, the optimizer's count and the step (int32)."""
+    from repro_torch.models import recsys as RS
+
+    def walk(node):
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        return int(np.prod(node.shape)) * 4
+
+    return 3 * walk(RS.model_schema(cfg)) + 8
+
+
+def run_driver(engine, rm: str, ckpt_dir: Path | None) -> dict:
+    """``repro_torch.launch.train.main`` as a user runs it: `rm` at full
+    width, DRIVER_PARTITIONS source partitions served by 2 service workers,
+    presto placement, DRIVER_STEPS steps, and a checkpoint in `ckpt_dir`
+    when one is given.  Checks the steps, the losses and the path's
+    launches; returns the driver's dict and the launch counts."""
+    from repro_torch.kernels import fused
+    from repro_torch.launch import train as driver
+
+    argv = ["--mode", "recsys", "--rm", rm, "--rows", str(MAIN_ROWS or 8192),
+            "--partitions", str(DRIVER_PARTITIONS), "--steps", str(DRIVER_STEPS),
+            "--workers", "2", "--placement", "presto"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir)]
+    torch.cuda.empty_cache()
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    out = driver.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(fused.LAUNCHES)
+    check_launches(f"driver {rm}", engine.lowered_plan, {1: launches})
+    check(out["steps"] == DRIVER_STEPS and len(out["losses"]) == DRIVER_STEPS
+          and all(np.isfinite(out["losses"])), f"driver: {out['steps']} steps, {out['losses']}")
+    print(f"driver: {' '.join(argv)}: {out['steps']} steps, losses {out['losses']}, step "
+          f"times {[round(t, 3) for t in out['step_ms']]} ms (CUDA events), launches "
+          f"{launches}, {wall:.2f} s in all; card {card_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 4 << 30, "the driver's state was not freed")
+    return out, launches
+
+
+def phase_driver(engine, ckpt_dir: Path) -> dict:
+    """The training driver at full width: rm2 (63 x 500,000 x 128 tables,
+    4,036,325,249 parameters) for DRIVER_STEPS steps, then rm1 (39 x
+    500,000 x 128) with its checkpoint in `ckpt_dir`.  The rm2 state's
+    checkpoint (48,435,902,996 bytes, 45.11 GiB) is more than the 45 GiB a
+    call of the GPU machine may write to its disk, so the full-width
+    checkpoint is rm1's (29,985,698,316 bytes).  Fails, with the numbers,
+    when the checkpoint's filesystem or the host has less free than it
+    takes.  Returns each run's launch counts by path."""
+    _, rm2 = run_driver(engine, MAIN_CONFIG, None)
+    need = state_bytes(ckpt_config())
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    disk, ram = shutil.disk_usage(ckpt_dir).free, host_free_bytes()
+    print(f"driver: the {CKPT_CONFIG} checkpoint needs {need} bytes; free on its filesystem "
+          f"{disk} bytes, host memory available {ram} bytes")
+    check(disk >= need and ram >= need,
+          f"driver: {need} bytes needed, {disk} free on disk and {ram} in host memory")
+    out, rm1 = run_driver(engine, CKPT_CONFIG, ckpt_dir)
+    saved = out["checkpoint"]
+    check(saved["bytes"] == need, f"driver: checkpoint of {saved['bytes']} bytes, want {need}")
+    print(f"driver: checkpoint of {CKPT_CONFIG} step {saved['step']}, {saved['bytes']} bytes "
+          f"({saved['bytes'] / 1e9:.2f} GB): host snapshot {saved['snapshot_s']:.3f} s "
+          f"({saved['bytes'] / 1e9 / saved['snapshot_s']:.3f} GB/s), write "
+          f"{saved['write_s']:.3f} s ({saved['bytes'] / 1e9 / saved['write_s']:.3f} GB/s); "
+          f"card {card_line()}")
+    return {f"driver {MAIN_CONFIG}": {1: rm2}, f"driver {CKPT_CONFIG}": {1: rm1}}
+
+
+def phase_restore(dev, ckpt_dir: Path) -> None:
+    """The driver's checkpoint restored in place at full width: a state of
+    the same structure, zeroed, takes the checkpoint leaf by leaf
+    (``CheckpointManager.restore``); every leaf is then held bitwise against
+    its ``.npy``, chunk by chunk.  The peak of ``max_memory_allocated``
+    during the restore stays within 1 GiB of the state's own bytes."""
+    from repro_torch.launch import train as driver
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import CheckpointManager, init_state
+    from repro_torch.train.checkpoint import flatten_state, leaf_chunks
+
+    cfg = ckpt_config()
+    ck = CheckpointManager(str(ckpt_dir))
+    step = ck.latest_step()
+    check(step == DRIVER_STEPS, f"restore: latest step {step}")
+    opt, _ = driver.recsys_step(cfg, 1e-3, DRIVER_STEPS)
+    state = init_state(RS.init_params(torch.Generator().manual_seed(1), cfg, dev), opt)
+    with torch.no_grad():
+        for _, t in flatten_state(state):
+            t.zero_()
+    nbytes = sum(t.numel() * t.element_size() for _, t in flatten_state(state))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ck.restore(step, target=state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t1, chunks = time.perf_counter(), 0
+    for name, arr, dst in ck.open_leaves(step, state):
+        for src, out in leaf_chunks(arr, dst):
+            check(torch.equal(out, torch.from_numpy(np.array(src)).to(dev)),
+                  f"restore: {name} differs from its .npy")
+            chunks += 1
+    verify_s = time.perf_counter() - t1
+    print(f"restore: {cfg.name} step {step}, {nbytes} bytes ({nbytes / 1e9:.2f} GB) into a "
+          f"zeroed state in place in {dt:.3f} s ({nbytes / 1e9 / dt:.3f} GB/s); every leaf "
+          f"bitwise its .npy ({chunks} chunks, {verify_s:.3f} s); max_memory_allocated during "
+          f"the restore {peak} bytes, the state {nbytes}, other live allocations "
+          f"{base - nbytes}, peak above the state {peak - nbytes} bytes; card {card_line()}")
+    check(peak <= nbytes + (1 << 30), f"restore: peak {peak} is more than 1 GiB above the "
+          f"state's {nbytes} bytes")
+    del state, opt
+    torch.cuda.empty_cache()
+
+
+def phase_elastic(dev, ckpt_dir: Path) -> dict:
+    """``ElasticTrainer`` over the driver's step at RM2's feature geometry
+    with tables cut to ELASTIC_ROWS rows: checkpoints every 2 steps, a
+    failure at step 3, then a second incarnation that restores step 2 and
+    finishes at step 4.  The failed incarnation's device memory is released
+    while the exception is held (``run`` drops its state before the
+    exception leaves it), and the resumed parameters stay within 1e-5 of a
+    run that never failed.  Returns the launch counts of producing the
+    drill's 4 batches."""
+    import dataclasses
+
+    from repro_torch.core.ctrlplane import SimulatedFailure
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.data.synth import SyntheticRecSysSource
+    from repro_torch.kernels import fused
+    from repro_torch.launch import train as driver
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import CheckpointManager, ElasticTrainer, init_state
+
+    full = train_config()
+    cfg = dataclasses.replace(full, data=dataclasses.replace(full.data,
+                                                             embedding_rows=ELASTIC_ROWS))
+    src = SyntheticRecSysSource(cfg.data, rows=MAIN_ROWS)
+    engine = TorchPreStoEngine(TransformSpec.from_source(src))
+    store = PartitionedStore(ELASTIC_STEPS, num_devices=4, source=src)
+    fused.reset_launches()
+    batches = [engine.produce_batch(store, pid) for pid in range(ELASTIC_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(fused.LAUNCHES)
+    check_launches("elastic", engine.lowered_plan, {1: launches})
+    opt, step = driver.recsys_step(cfg, 1e-3, ELASTIC_STEPS)
+
+    def make_state(device):
+        return init_state(RS.init_params(torch.Generator().manual_seed(0), cfg, device), opt)
+
+    ck = CheckpointManager(str(ckpt_dir))
+    trainer = ElasticTrainer(make_device=lambda: dev, make_state=make_state,
+                             make_step=lambda device: step, ckpt=ck, checkpoint_every=2)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        trainer.run(enumerate(batches), max_steps=ELASTIC_STEPS, fail_at=3)
+        raise SmokeFailure("elastic: the injected failure did not fire")
+    except SimulatedFailure as exc:
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()  # the exception and its traceback alive
+        failed = str(exc)
+    ck.wait()
+    latest = ck.latest_step()
+    check(latest == 2, f"elastic: latest step {latest} after the failure, want 2")
+    check(after - before <= 64 << 20, f"elastic: {after - before} bytes still allocated "
+          f"after the failure (before {before}, after {after})")
+    state, metrics = trainer.run(enumerate(batches), max_steps=ELASTIC_STEPS)
+    torch.cuda.synchronize()
+    drill_s = time.perf_counter() - t0
+    check(int(state["step"]) == ELASTIC_STEPS and ck.latest_step() == ELASTIC_STEPS,
+          f"elastic: ended at step {int(state['step'])}, latest {ck.latest_step()}")
+    straight = make_state(dev)
+    for mb in batches:
+        straight, _ = step(straight, mb)
+    with torch.no_grad():
+        worst = max(float((a - b).abs().max()) for a, b in
+                    zip(state["params"].parameters(), straight["params"].parameters()))
+    n = sum(p.numel() for p in state["params"].parameters())
+    print(f"elastic: {cfg.name} feature geometry, tables {cfg.n_tables} x {ELASTIC_ROWS} x "
+          f"{cfg.emb_dim} ({n} parameters, checkpoints of {state_bytes(cfg)} bytes), "
+          f"checkpoint_every 2: {failed!r}; latest step {latest}; device memory "
+          f"{before} bytes before the first incarnation, {after} after the failure "
+          f"(exception held); the second incarnation restored step 2 and ended at step "
+          f"{int(state['step'])} (loss {float(metrics['loss']):.4f}); largest |resumed - "
+          f"straight| {worst:.3g} (bound 1e-5); {drill_s:.2f} s; card {card_line()}")
+    check(worst < 1e-5, f"elastic: resumed parameters {worst} from the straight run")
+    del state, straight, metrics, batches, trainer
+    torch.cuda.empty_cache()
+    return {1: launches}
+
+
+def phase_examples() -> dict:
+    """The three examples on the card as a user runs them: the quickstart,
+    ``train_recsys_e2e --steps 40`` (its loss must fall) and the kernel
+    level of ``presto_vs_disagg`` (RM5, 1,024 rows, fused against unfused).
+    Returns each example's launch counts."""
+    from repro_torch.examples import presto_vs_disagg, quickstart, train_recsys_e2e
+    from repro_torch.kernels import fused
+
+    by_path = {}
+    fused.reset_launches()
+    losses = quickstart.main([])
+    by_path["quickstart"] = {1: dict(fused.LAUNCHES)}
+    check(len(losses) == 5 and all(np.isfinite(losses)), f"quickstart losses {losses}")
+    fused.reset_launches()
+    e2e = train_recsys_e2e.main(["--steps", str(E2E_STEPS)])
+    by_path["train_recsys_e2e"] = {1: dict(fused.LAUNCHES)}
+    k = max(len(e2e["losses"]) // 10, 1)
+    check(e2e["steps"] == E2E_STEPS
+          and np.mean(e2e["losses"][-k:]) < np.mean(e2e["losses"][:k]),
+          f"train_recsys_e2e: {e2e['steps']} steps, losses {e2e['losses']}")
+    fused.reset_launches()
+    pvd = presto_vs_disagg.main([])
+    by_path["presto_vs_disagg"] = {1: dict(fused.LAUNCHES)}
+    card = card_line()
+    print(f"examples: quickstart losses {[round(x, 4) for x in losses]}, launches "
+          f"{by_path['quickstart'][1]}; train_recsys_e2e {e2e['params']} parameters, "
+          f"{e2e['steps']} steps, loss first {np.mean(e2e['losses'][:k]):.4f} -> last "
+          f"{np.mean(e2e['losses'][-k:]):.4f} (mean of {k}), checkpoint step "
+          f"{e2e['checkpoint_step']}, launches {by_path['train_recsys_e2e'][1]}; card {card}")
+    print(f"examples: presto_vs_disagg kernel level, rm5 at 1,024 rows: fused "
+          f"{pvd['fused_ms']:.4f} ms/partition, unfused {pvd['unfused_ms']:.4f} ms/partition "
+          f"(CUDA events, best of 10), launches {by_path['presto_vs_disagg'][1]}; card {card}")
+    return by_path
+
+
+def phase_sim() -> None:
+    """One seeded ``SimHarness`` schedule (1,000 Zipf sessions, 8 workers
+    over 4 devices, two kills and a join) replayed twice: the two event
+    traces are equal byte for byte."""
+    import hashlib
+
+    from repro_torch.core.simclock import SimHarness
+
+    traces, t0 = [], time.perf_counter()
+    for _ in range(2):
+        h = SimHarness(seed=SIM_SEED, num_workers=8, num_devices=4, straggler_timeout=0.05)
+        h.workload(1000, arrival_window_s=4.0)
+        h.kill_at(0.5, 1)
+        h.kill_at(1.5, 6)
+        h.join_at(2.0)
+        rep = h.run()
+        traces.append(h.trace_bytes())
+    check(traces[0] == traces[1] and len(traces[0]) > 1000, "sim: the replay's trace differs")
+    print(f"sim: seed {SIM_SEED}, 1000 sessions replayed twice, {rep.events_processed} events "
+          f"each, traces equal ({len(traces[0])} bytes, sha256 "
+          f"{hashlib.sha256(traces[0]).hexdigest()[:16]}), makespan {rep.makespan_s:.4f} s "
+          f"modeled, {rep.starved_count} starved; {time.perf_counter() - t0:.2f} s of host time")
 
 
 def phase_breakdown(engines: dict, store) -> None:
@@ -1685,9 +1996,22 @@ def main() -> int:
     finally:
         files_dir.cleanup()
     del train_batches
+    # the checkpoints live under build/ (ignored by git) and go once read
+    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        driver_by_path = phase_driver(engine, ckpt_root / "driver")
+        phase_restore(dev, ckpt_root / "driver")
+        shutil.rmtree(ckpt_root / "driver")
+        elastic_launches = phase_elastic(dev, ckpt_root / "elastic")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    example_by_path = phase_examples()
+    phase_sim()
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
-               **store_by_path, **service_by_path, **train_by_path}
+               **store_by_path, **service_by_path, **train_by_path,
+               **driver_by_path, "elastic": elastic_launches, **example_by_path}
     totals = {n: sum(path_totals(by_k)[n] for by_k in by_path.values()) for n in launches[1]}
     for name, n in totals.items():
         check(n > 0, f"{name} was never launched")

@@ -1,5 +1,8 @@
-"""Training: AdamW with global-norm clipping, and the train steps."""
+"""Training: AdamW with global-norm clipping, the train steps, checkpoints
+and the elastic restart loop."""
 
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.elastic import ElasticTrainer
 from repro_torch.train.optimizer import (
     Optimizer,
     adamw,
@@ -14,6 +17,8 @@ from repro_torch.train.step import (
 )
 
 __all__ = [
+    "CheckpointManager",
+    "ElasticTrainer",
     "Optimizer",
     "adamw",
     "apply_updates",

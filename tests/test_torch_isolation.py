@@ -39,6 +39,10 @@ def test_every_module_imports_without_jax_or_repro():
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
     )
     assert "repro_torch.core.presto" in modules and "repro_torch.kernels.fused" in modules
+    assert {"repro_torch.train.checkpoint", "repro_torch.train.elastic",
+            "repro_torch.launch.train", "repro_torch.core.simclock",
+            "repro_torch.examples.quickstart", "repro_torch.examples.train_recsys_e2e",
+            "repro_torch.examples.presto_vs_disagg"} <= set(modules)
     script = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -11,8 +11,8 @@ invariant everywhere: whatever the chaos, a session delivers the port's
 serial ``produce_batch`` batches bitwise, every key; the serial batches are
 held against the reference's (integers and labels bitwise, ``dense`` to
 rtol=atol=1e-6).  Where a reference test asserts a count, the mirror asserts
-the same count.  The seeded chaos matrix runs its threaded half; its
-virtual-time twin waits for the port of ``core.simclock``.
+the same count.  The seeded chaos matrix runs its threaded half and its
+virtual-time twin (the port's ``core.simclock``).
 """
 
 import dataclasses
@@ -42,6 +42,7 @@ from repro_torch.core.featcache import FeatureCache, default_spill_store
 from repro_torch.core.planner import DeviceTopology
 from repro_torch.core.presto import TorchPreStoEngine
 from repro_torch.core.service import JobSpec, PreprocessingService
+from repro_torch.core.simclock import SimHarness
 from repro_torch.core.spec import TransformSpec
 from repro_torch.data.storage import (
     CacheSpillStore,
@@ -244,11 +245,25 @@ def test_add_worker_mid_session_speeds_completion():
     assert svc.events.counts().get("worker_join") == 3
 
 
+def _sim_chaos_trace(seed: int) -> bytes:
+    """One seeded chaos schedule under the port's sim clock -> its trace
+    bytes (the reference's ``_sim_chaos_trace``)."""
+    h = SimHarness(seed=seed, num_workers=3, num_devices=2, straggler_timeout=0.05)
+    h.workload(24, arrival_window_s=0.4)
+    sched = np.random.default_rng(seed)
+    for _ in range(2):
+        h.kill_at(float(sched.uniform(0.01, 0.25)), int(sched.integers(0, 3)))
+    h.join_at(float(sched.uniform(0.25, 0.4)))
+    h.run()
+    return h.trace_bytes()
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("seed", [1, 2])
 def test_seeded_chaos_matrix_bitwise(rm1, mode, seed):
-    """The threaded half of the reference's seeded chaos matrix: a kill
-    (and maybe a rejoin) at a seeded point in delivery order."""
+    """The reference's seeded chaos matrix: a kill (and maybe a rejoin) at a
+    seeded point in delivery order, bitwise; and its virtual-time twin, the
+    same seed replaying a byte-identical trace."""
     rng = np.random.default_rng(seed)
     kill_after, kill_slot = int(rng.integers(1, 4)), int(rng.integers(0, 3))
     rejoin = bool(rng.integers(0, 2))
@@ -277,6 +292,13 @@ def test_seeded_chaos_matrix_bitwise(rm1, mode, seed):
     assert_bitwise(got, rm1["ref"])
     assert sess.stats().done
     assert svc.events.counts().get("worker_leave") == 1
+
+    # the virtual-time twin: the SAME seed replays byte-identically
+    assert _sim_chaos_trace(seed) == _sim_chaos_trace(seed)
+
+
+def test_sim_chaos_traces_differ_across_seeds():
+    assert _sim_chaos_trace(1) != _sim_chaos_trace(2)
 
 
 # -- checkpoint / restart / resume ---------------------------------------------
@@ -806,8 +828,36 @@ def test_service_cross_tenant_block_assembly():
 # -- device-aware routing (test_devices.py) ----------------------------------------
 
 
-def _run_routed(rm1, *, owner_map, locality, partitions, devices, threshold):
+def _hold_until_shed(dev, timeout: float = 30.0) -> None:
+    """Make `dev`'s ISP produces wait, outside every lock, until the router
+    has shed one of `dev`'s claims to the host (or `timeout` s pass).
+
+    The reference's twin relies on the hot device's queue still being above
+    the threshold when the other devices run out of their own work.  There
+    every worker's first launch meets one jit compile and each worker stages
+    its next claim while XLA computes, so the cold workers reach the hot
+    backlog while it is deep.  The port compiles nothing and computes
+    synchronously on the CPU, so the race is lost now and then under load
+    (host_fallbacks == 0).  Holding the hot device's own produces makes the
+    hot queue the slow one deterministically; a router that never sheds
+    still fails the assertions, after the timeout."""
+    begin = dev.begin_claim
+    deadline = [None]
+
+    def held():
+        if deadline[0] is None:
+            deadline[0] = time.monotonic() + timeout
+        while dev.host_fallbacks == 0 and time.monotonic() < deadline[0]:
+            time.sleep(0.001)
+        begin()
+
+    dev.begin_claim = held
+
+
+def _run_routed(rm1, *, owner_map, locality, partitions, devices, threshold, hold=None):
     fleet = DeviceFleet(devices)
+    if hold is not None:
+        _hold_until_shed(fleet[hold])
     store = PartitionedStore(partitions, num_devices=devices, source=rm1["src"],
                              fleet=fleet, owner_map=owner_map)
     model = ContentionAwareCostModel(queue_threshold=threshold)
@@ -825,13 +875,16 @@ def test_zipf_routing_bitwise_fallback_and_inflight_bound(rm1):
     devices, partitions, threshold = 4, 16, 5
     skew_map = zipf_owner_map(partitions, devices, alpha=1.1, seed=0)
     assert max(skew_map.count(d) for d in range(devices)) > threshold
+    hot = max(range(devices), key=skew_map.count)
     serial_store = PartitionedStore(partitions, num_devices=devices, source=rm1["src"])
     ref = {p: rm1["engine"].produce_batch(serial_store, p) for p in range(partitions)}
     runs = {}
-    for name, owner_map, locality in (("uniform", None, True), ("blind", skew_map, False),
-                                      ("routed", skew_map, True)):
+    for name, owner_map, locality, hold in (("uniform", None, True, None),
+                                            ("blind", skew_map, False, None),
+                                            ("routed", skew_map, True, hot)):
         runs[name] = _run_routed(rm1, owner_map=owner_map, locality=locality,
-                                 partitions=partitions, devices=devices, threshold=threshold)
+                                 partitions=partitions, devices=devices, threshold=threshold,
+                                 hold=hold)
     (_, st_u, _), (_, st_b, fleet_b), (_, st_r, fleet_r) = (
         runs["uniform"], runs["blind"], runs["routed"])
     assert st_u.host_fallbacks == 0 and st_b.host_fallbacks == 0
