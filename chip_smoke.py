@@ -70,9 +70,26 @@ just after:
   checkpoints every 2 steps, a failure at step 3 whose state is released
   while the exception is held, a second incarnation that restores step 2
   and ends at step 4 within 1e-5 of a run that never failed;
-* the examples (``phase_examples``): ``repro_torch.examples.quickstart``,
-  ``train_recsys_e2e --steps 40`` (its loss must fall) and the kernel
-  level of ``presto_vs_disagg`` (rm5, 1,024 rows, fused against unfused);
+* the meshed paths (``phase_mesh``, after the service): ranks that share
+  the card, spawned by ``launch.mesh.run_spmd`` and joined by gloo with
+  every hop staged through pinned host memory (NCCL refuses two ranks on
+  one device; the script prints the world, the rank -> device map and the
+  transport): (a) ``preprocess_global`` on a (4, 2) (data, model) mesh of
+  8 ranks over 4 classic and 2 dedup-4 files of ``phase_store`` under
+  presto, hybrid, disagg and unfused, every gathered global batch bitwise
+  the one-device batch, each rank's bytes the hopped families' bytes,
+  presto with no collective call (paths "mesh presto", "mesh hybrid",
+  "mesh disagg", "mesh unfused", each summed over the ranks); (b) the
+  row-sharded bag over RM2's full tables on model = 4 against the
+  one-device bag and its table gradient; (c) three meshed train steps with
+  the full tables split over 2 ranks against three one-device steps from
+  the same params; (d) the int8-compressed step across 2 pods at 25,000
+  table rows against the uncompressed meshed step; (e)
+  ``repro_torch.examples.presto_vs_disagg`` as a user runs it: its kernel
+  level (rm5, 1,024 rows, fused against unfused) and its system level on
+  16 ranks;
+* the examples (``phase_examples``): ``repro_torch.examples.quickstart``
+  and ``train_recsys_e2e --steps 40`` (its loss must fall);
 * the simulator (``phase_sim``): one seeded ``SimHarness`` schedule of
   1,000 sessions with kills and a join, replayed twice, the traces equal;
 
@@ -226,6 +243,16 @@ CKPT_CONFIG = "rm1"
 ELASTIC_ROWS, ELASTIC_STEPS = 25_000, 4
 E2E_STEPS = 40  # train_recsys_e2e's steps on the card
 SIM_SEED = 11
+# the meshed paths (phase_mesh): ranks sharing the card, spawned per world
+MESH_PRE = (4, 2)  # (a) preprocess_global, (data, model)
+MESH_PLACEMENTS = {"presto": ("presto", None), "hybrid": ("hybrid", None),
+                   "disagg": ("disagg", None), "unfused": ("disagg", "unfused")}
+MESH_DEDUP_PIDS = (0, 1)  # of phase_store's dedup-4 files
+MESH_EMB = (1, 4)  # (b) the row-sharded bag over RM2's full tables
+MESH_TRAIN, MESH_TRAIN_STEPS = (1, 2), 3  # (c) the meshed train step, full tables
+MESH_PODS, MESH_PODS_ROWS = (2, 1, 1), ELASTIC_ROWS  # (d) compressed, (pod, data, model)
+MESH_EXAMPLE = (8, 2)  # (e) presto_vs_disagg's default system-level mesh
+MESH_SEED = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -1091,6 +1118,543 @@ def phase_service(engine, files: Path, fused_batches: dict, root: Path) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# The meshed paths (phase_mesh): ranks that share the one card, spawned by
+# launch.mesh.run_spmd.  The rank programs below are module-level so that a
+# spawned rank (which imports this file as __mp_main__, main() not run)
+# finds them.
+
+
+def seeded_table(cfg, t: int, device) -> torch.Tensor:
+    """Table t of a DLRM drawn from its own generator (MESH_SEED, t), so
+    that a rank draws its rows table by table without the whole tables."""
+    g = torch.Generator(device=device)
+    g.manual_seed(MESH_SEED * 1_000_003 + t)
+    return torch.empty((cfg.data.embedding_rows, cfg.emb_dim), device=device).normal_(
+        generator=g).mul_(0.01)
+
+
+def seeded_dlrm(cfg, device, rules=None):
+    """A DLRM from MESH_SEED: the tables from ``seeded_table``, the MLPs
+    from ``init_from_schema``.  With meshed `rules`, this rank's blocks."""
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.models import recsys as RS
+    from repro_torch.models.layers import init_from_schema
+
+    schema = RS.model_schema(cfg)
+    schema.pop("tables")
+    params = init_from_schema(torch.Generator().manual_seed(MESH_SEED), schema, torch.float32,
+                              device)
+    specs = RS.param_pspecs(cfg, rules) if rules is not None else None
+    if specs is not None:
+        params = {g: {k: shard(v, rules.mesh, specs[g][k]).contiguous() for k, v in d.items()}
+                  for g, d in params.items()}
+    rows = cfg.data.embedding_rows
+    lo, hi = 0, rows
+    if specs is not None:
+        probe = shard(torch.arange(rows), rules.mesh, specs["tables"][1:2])
+        lo, hi = int(probe[0]), int(probe[-1]) + 1
+    tables = torch.empty((cfg.n_tables, hi - lo, cfg.emb_dim), device=device)
+    for t in range(cfg.n_tables):
+        tables[t] = seeded_table(cfg, t, device)[lo:hi]
+    params["tables"] = tables
+    return RS.DLRM(cfg, params)
+
+
+def family_hop_bytes(spec, rows: int, fams, n_data: int) -> int:
+    """Bytes one rank moves per global batch of `rows` when `fams` run on
+    the host: each hopped family's pages and batch keys over the data
+    axis, gen's pages regathered (not hopped) when dense hops too."""
+    from repro_torch.core import opgraph
+
+    page_b = opgraph.family_page_bytes(spec, rows)
+    out_b = opgraph.family_batch_bytes(spec, rows)
+    skip_gen = "gen" in fams and "dense" in fams
+    return sum(((0 if f == "gen" and skip_gen else page_b[f]) + out_b[f]) // n_data
+               for f in fams)
+
+
+def table_sq(grad: torch.Tensor) -> float:
+    """Sum of squares of a (T, R, D) gradient in f64, one table at a time."""
+    return sum(float(g.double().square().sum()) for g in grad)
+
+
+def mesh_bits(t: torch.Tensor) -> torch.Tensor:
+    """Bits of a batch tensor (floats as int32), for bitwise comparisons."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def mesh_preprocess_rank(mesh, spec, dspec, root: str, want_dir: str) -> dict:
+    """(a): the rank's data block of each partition, staged once (file
+    read, dedup inflation, page build, shard, pin; host clock), then
+    copied in and preprocessed under each placement, the counters zeroed
+    just before each placement and read just after; every gathered global
+    batch bitwise the one-device batch."""
+    from repro_torch.core.presto import TorchPreStoEngine, gather_minibatch, shard_pages
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.kernels import fused
+
+    dev = mesh.device
+    runs = [("classic", pid) for pid in range(4)] + [("dedup", pid) for pid in MESH_DEDUP_PIDS]
+    stores = {k: PartitionedStore(4, 4, None, root=f"{root}/{k}") for k in ("classic", "dedup")}
+    n_data = mesh.shape["data"]
+    out = {"placements": {}, "stage_ms": []}
+    engines_of = {name: {k: TorchPreStoEngine(s, mesh, placement=placement,
+                                              kernel_mode=kernel_mode)
+                         for k, s in (("classic", spec), ("dedup", dspec))}
+                  for name, (placement, kernel_mode) in MESH_PLACEMENTS.items()}
+    staged = {}
+    for kind, pid in runs:  # staging depends on the mesh, not on the placement
+        stager = engines_of["presto"][kind]
+        t0 = time.perf_counter()
+        staged[kind, pid] = stager.pin_pages(
+            shard_pages(stager.stage_partition(stores[kind], pid), mesh))
+        out["stage_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def global_batch(engine, pages):
+        mb = engine.preprocess_global(engine.put_pages(pages))
+        torch.cuda.current_stream(dev).synchronize()
+        return mb
+
+    for engines in engines_of.values():  # warm-up: the rank's first loads and hops
+        global_batch(engines["classic"], staged["classic", 0])
+    for name, engines in engines_of.items():
+        fams = engines["classic"].host_families()
+        ms, per_run, batches = [], [], []
+        fused.reset_launches()
+        mesh.counter.reset()
+        for kind, pid in runs:
+            before = mesh.counter.total_bytes
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            batches.append(global_batch(engines[kind], staged[kind, pid]))
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            per_run.append(mesh.counter.total_bytes - before)
+        launches = dict(fused.LAUNCHES)
+        calls = mesh.counter.total_calls
+        hop_s = sum(mesh.counter.seconds.values())
+        want_bytes = family_hop_bytes(spec, batches[0]["labels"].shape[0] * n_data, fams, n_data)
+        check(all(n == want_bytes for n in per_run),
+              f"mesh {name}: rank {mesh.rank} moved {per_run} bytes per batch, the family "
+              f"bytes say {want_bytes}")
+        check(name != "presto" or calls == 0, f"mesh presto: {calls} collective calls")
+        for (kind, pid), mb in zip(runs, batches):
+            whole = gather_minibatch(mb, mesh)
+            if mesh.coords["data"] == 0:
+                for key, v in whole.items():
+                    want = torch.from_numpy(np.load(f"{want_dir}/{kind}-{pid}-{key}.npy"))
+                    check(torch.equal(mesh_bits(v).cpu(), mesh_bits(want)),
+                          f"mesh {name}: {kind} pid {pid} {key} differs from the one-device batch")
+        out["placements"][name] = {"ms": ms, "bytes": want_bytes, "calls": calls,
+                                   "hop_ms": hop_s * 1e3 / len(runs), "launches": launches,
+                                   "host_families": fams}
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def mesh_embedding_rank(mesh, cfg, ids_path: str, want_path: str) -> dict:
+    """(b): the row-sharded bag of the whole batch over this rank's rows of
+    the full tables, and the gradient of sum(pooled * w) for its rows."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import recsys as RS
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    rules = ShardingRules.make(mesh)
+    tables = seeded_dlrm(cfg, dev, rules).tables
+    ids = {k: torch.from_numpy(v).to(dev) for k, v in np.load(ids_path).items()}
+    w = mesh_weights(cfg, ids["lengths"].shape[0], dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    pooled = RS.sharded_embedding_bag(tables, ids["multi_hot_ids"], ids["lengths"],
+                                      ids["one_hot_ids"], mesh, "model")
+    (pooled * w).sum().backward()
+    b.record()
+    b.synchronize()
+    want = np.load(want_path)
+    r = tables.shape[1]
+    lo = mesh.coords["model"] * r
+    t_i, row_i = torch.from_numpy(want["t"]).to(dev), torch.from_numpy(want["row"]).to(dev)
+    mine = (row_i >= lo) & (row_i < lo + r)
+    got_rows = tables.grad[t_i[mine], row_i[mine] - lo]
+    grad_err = float((got_rows - torch.from_numpy(want["grad"]).to(dev)[mine]).abs().max())
+    pooled_err = None
+    if mesh.rank == 0:
+        pooled_err = float((pooled.detach() - torch.from_numpy(np.load(want["pooled"].item()))
+                            .to(dev)).abs().max())
+    return {"ms": a.elapsed_time(b), "pooled_err": pooled_err, "grad_err": grad_err,
+            "rows_checked": int(mine.sum()), "sq": table_sq(tables.grad),
+            "peak": torch.cuda.max_memory_allocated(dev), "bytes": dict(mesh.counter.bytes),
+            "hop_ms": sum(mesh.counter.seconds.values()) * 1e3}
+
+
+def mesh_weights(cfg, b: int, dev) -> torch.Tensor:
+    """The (B, T, D) weights of (b)'s loss sum(pooled * w), from MESH_SEED."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(MESH_SEED)
+    return torch.empty((b, cfg.n_tables, cfg.emb_dim), device=dev).normal_(generator=g)
+
+
+def mesh_train_rank(mesh, cfg, batch_paths) -> dict:
+    """(c): the meshed train step over the rank's blocks of the tables."""
+    from repro_torch.distributed.sharding import ShardingRules, shard
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import make_train_step
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    rules = ShardingRules.make(mesh)
+    opt, state, _ = train_setup(cfg, seeded_dlrm(cfg, dev, rules))
+    step = make_train_step(lambda m, b: RS.loss_fn(m, b, cfg, rules), opt, rules=rules,
+                           param_specs=RS.flat_param_pspecs(cfg, rules))
+    row = rules.pspec("batch")
+    losses, ms = [], []
+    for path in batch_paths:
+        batch = {k: shard(v, mesh, row).to(dev) for k, v in torch.load(path).items()}
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, metrics = step(state, batch)
+        b.record()
+        b.synchronize()
+        losses.append(float(metrics["loss"]))
+        ms.append(a.elapsed_time(b))
+    return {"losses": losses, "ms": ms, "peak": torch.cuda.max_memory_allocated(dev),
+            "tables": tuple(state["params"].tables.shape),
+            "hop_ms": sum(mesh.counter.seconds.values()) * 1e3 / len(batch_paths)}
+
+
+def mesh_pods_rank(mesh, cfg, batch_path: str) -> dict:
+    """(d): two int8-compressed steps over (pod, data, model), and from the
+    same params and rows one uncompressed meshed step and one averaged
+    within the pod only.  The gradients that the first compressed update
+    receives are held against the f32 mean over pod and data (the
+    uncompressed step's) within the quantization bound, (s_0 + s_1) / 4 for
+    the pods' scales s_p.  The error feedback e after it must be the pod's
+    residual x - q * s: |e| <= s / 2, and (x - e) / s whole numbers, with
+    x the pod's mean gradient from the pod-averaged step (the same
+    gradient up to the summation order of the card's kernels)."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import ShardingRules, shard
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import (
+        Optimizer, adamw, init_state, make_compressed_train_step, make_train_step,
+        warmup_cosine)
+
+    dev = mesh.device
+    inner = ShardingRules.make(mesh, overrides={"batch": ("data",)})
+    outer = ShardingRules.make(mesh)
+    specs = RS.flat_param_pspecs(cfg, inner)
+    batch = {k: shard(v, mesh, outer.pspec("batch")).to(dev)
+             for k, v in torch.load(batch_path).items()}
+    opt = adamw(warmup_cosine(*TRAIN_LR))
+    seen = {}  # the gradients each first update received (it scales them in place)
+
+    def recording(key):
+        def update(grads, state, params, sq_sum=None):
+            if key not in seen:
+                seen[key] = {k: g.detach().clone() for k, g in grads.items()}
+            return opt.update(grads, state, params, sq_sum)
+
+        return Optimizer(opt.init, update)
+
+    model = seeded_dlrm(cfg, dev, inner)
+    state = init_state(model, opt, with_err=True)
+    cstep = make_compressed_train_step(lambda m, b: RS.loss_fn(m, b, cfg, inner),
+                                       recording("compressed"), inner, specs)
+    mesh.counter.reset()
+    state, m1 = cstep(state, batch)
+    hop = {"bytes": dict(mesh.counter.bytes), "calls": dict(mesh.counter.calls)}
+    after_one = {k: v.detach().clone() for k, v in model.named_parameters()}
+    err = state["err"]
+    state, m2 = cstep(state, batch)
+    del model, state, cstep
+    for key, rules in (("global", outer), ("pod", inner)):
+        umodel = seeded_dlrm(cfg, dev, inner)
+        ustep = make_train_step(lambda m, b, r=rules: RS.loss_fn(m, b, cfg, r),
+                                recording(key), rules=rules, param_specs=specs)
+        mesh.counter.reset()
+        ustep(init_state(umodel, opt), batch)
+        if key == "global":
+            f32 = {"bytes": dict(mesh.counter.bytes), "calls": dict(mesh.counter.calls)}
+            diff = max(float((after_one[k] - v.detach()).abs().max())
+                       for k, v in umodel.named_parameters())
+        del umodel, ustep
+    got, exact, x = seen["compressed"], seen["global"], seen["pod"]
+    names = list(x)
+    s_own = torch.stack([x[k].abs().max() / 127.0 + 1e-12 for k in names])
+    s_all = comm.all_gather(s_own, mesh, "pod")  # (pods, leaves)
+    ratio, own_ratio, err_half, err_frac = 0.0, 0.0, 0.0, 0.0
+    for i, k in enumerate(names):
+        err_half = max(err_half, float(err[k].abs().max() / s_own[i]))
+        q = (x[k] - err[k]) / s_own[i]
+        err_frac = max(err_frac, float((q - torch.round(q)).abs().max()))
+        bound = s_all[:, i].sum() / 4 + 1e-6 * exact[k].abs().max()
+        ratio = max(ratio, float((got[k] - exact[k]).abs().max() / bound))
+        own_ratio = max(own_ratio, float((x[k] - exact[k]).abs().max() / bound))
+    numel = sum(v.numel() for v in after_one.values())
+    return {"losses": [float(m1["loss"]), float(m2["loss"])], "max_diff": diff, "hop": hop,
+            "f32": f32, "numel": numel, "leaves": len(after_one), "ratio": ratio,
+            "own_ratio": own_ratio, "err_half": err_half,
+            "err_frac": err_frac}
+
+
+def mesh_pods(dev, cfg, batch_path: str, card: str) -> None:
+    """(d) on MESH_PODS: runs ``mesh_pods_rank`` on every rank and holds
+    its results (see ``phase_mesh``)."""
+    from repro_torch.launch.mesh import run_spmd
+
+    t0 = time.perf_counter()
+    ranks = run_spmd(mesh_pods_rank, MESH_PODS, ("pod", "data", "model"), device=dev,
+                     args=(cfg, batch_path))
+    for r in ranks:
+        check(r["losses"][1] < r["losses"][0], f"mesh (d): losses {r['losses']} do not fall")
+        check(r["ratio"] <= 1.0, f"mesh (d): the compressed update's gradients {r['ratio']} "
+                                 f"times the quantization bound from the f32 mean")
+        check(r["own_ratio"] > 1.0, f"mesh (d): the pod's own mean {r['own_ratio']} times the "
+                                    f"bound (the check cannot tell it from the mean)")
+        check(r["err_half"] <= 0.5 + 1e-4 and r["err_frac"] <= 1e-3,
+              f"mesh (d): error feedback up to {r['err_half']} scales, {r['err_frac']} from "
+              f"whole steps of the scale")
+        check(r["max_diff"] < 1e-3, f"mesh (d): {r['max_diff']} from the uncompressed step")
+        check(r["hop"]["calls"]["all-gather"] == 2 * r["leaves"]
+              and r["hop"]["bytes"]["all-gather"] == r["numel"] + 4 * r["leaves"],
+              f"mesh (d): pod hop {r['hop']} for {r['numel']} elements in {r['leaves']} leaves")
+        check(r["f32"]["bytes"]["all-reduce"] >= 4 * r["numel"], f"mesh (d): f32 {r['f32']}")
+    r = ranks[0]
+    print(f"mesh (d): compressed step on a {MESH_PODS} (pod, data, model) mesh, "
+          f"{cfg.data.embedding_rows}-row tables: losses {[rr['losses'] for rr in ranks]}; the "
+          f"first update's gradients within {max(rr['ratio'] for rr in ranks):.4g} of the "
+          f"quantization bound from the f32 pod-and-data mean (the pod's own mean: "
+          f"{min(rr['own_ratio'] for rr in ranks):.4g} of it), error feedback up to "
+          f"{max(rr['err_half'] for rr in ranks):.6g} scales and within "
+          f"{max(rr['err_frac'] for rr in ranks):.3g} of whole steps; parameters one "
+          f"step on within {max(rr['max_diff'] for rr in ranks):.3g} of the uncompressed step's "
+          f"(bound 1e-3, at most 2 lr apart after AdamW's first step); pod hop "
+          f"{r['hop']['bytes']['all-gather']} int8+scale bytes per rank in "
+          f"{r['hop']['calls']['all-gather']} all-gathers against "
+          f"{r['f32']['bytes']['all-reduce']} bytes of f32 all-reduce for "
+          f"{r['numel']} parameters; {time.perf_counter() - t0:.1f} s with the spawn; card {card}")
+
+
+def phase_mesh(dev, spec, root: Path, fused_batches: dict) -> dict:
+    """The meshed paths at full RM2 width, as ranks that share the card
+    (``launch.mesh.run_spmd``; transport ``gloo-staged``):
+
+    (a) ``preprocess_global`` on a (4, 2) (data, model) mesh over pids 0-3
+        of ``phase_store``'s classic files and two of its dedup-4 files
+        (each rank stages each once), under presto, hybrid, disagg and
+        unfused: every gathered global
+        batch bitwise the one-device batch, each rank's bytes per batch the
+        hopped families' page and batch bytes over the data axis (gen
+        pages regathered under disagg), presto with no collective call;
+    (b) the row-sharded bag over RM2's full tables on a (1, 4) mesh against
+        the one-device bag (2e-5) and its table gradient (1e-6);
+    (c) three meshed train steps on a (1, 2) mesh (the full tables split
+        over model) against three one-device steps from the same params
+        and batches (losses within 1e-5);
+    (d) the int8-compressed step on a (2, 1, 1) (pod, data, model) mesh at
+        rm2 widths with MESH_PODS_ROWS-row tables: the loss falls over 2
+        steps, the first update's gradients lie within the quantization
+        bound of the f32 mean (where the pod's own mean does not), the
+        error feedback is the pod's residual, one step lands within 1e-3 of
+        the uncompressed meshed step, and the pod hop carries int8 (numel
+        bytes and a 4-byte scale per leaf);
+    (e) ``presto_vs_disagg`` as a user runs it (its system level on its
+        default (8, 2) mesh of ranks), each placement's bytes per rank
+        against the family bytes.
+
+    Returns the launch counts of (a)'s placements (summed over ranks) and
+    of the example's kernel level."""
+    import dataclasses
+
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.data.synth import RM_CONFIGS, SyntheticRecSysSource
+    from repro_torch.launch.mesh import choose_transport, rank_devices, run_spmd
+    from repro_torch.models import recsys as RS
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    work = root / "mesh"
+    work.mkdir()
+    world = int(np.prod(MESH_PRE))
+    ranks_on = rank_devices(world, dev)
+    print(f"mesh: world of {world} ranks as a {MESH_PRE} (data, model) mesh, rank -> device "
+          f"{[str(d) for d in ranks_on]}, transport {choose_transport(ranks_on)} (NCCL refuses "
+          f"two ranks on one device); card {card}")
+
+    # (a) the one-device batches the gathered ones must equal, as files
+    dcfg = dataclasses.replace(RM_CONFIGS[MAIN_CONFIG], dup_factor=DEDUP_FACTOR)
+    dspec = TransformSpec.from_source(SyntheticRecSysSource(dcfg, rows=MAIN_ROWS, seed=0))
+    dengine = TorchPreStoEngine(dspec)
+    dstore = PartitionedStore(4, 4, None, root=str(root / "dedup"))
+    wants = [("classic", pid, fused_batches[pid]) for pid in range(4)] + \
+        [("dedup", pid, dengine.produce_batch(dstore, pid)) for pid in MESH_DEDUP_PIDS]
+    for kind, pid, mb in wants:
+        for key, v in mb.items():
+            np.save(work / f"{kind}-{pid}-{key}.npy", v.cpu().numpy())
+    del wants
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_spmd(mesh_preprocess_rank, MESH_PRE, ("data", "model"), device=dev,
+                     args=(spec, dspec, str(root), str(work)))
+    by_path = {}
+    for name, (placement, kernel_mode) in MESH_PLACEMENTS.items():
+        per = [r["placements"][name] for r in ranks]
+        counts = {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
+        by_path[f"mesh {name}"] = {1: counts}
+        check_launches(f"mesh {name}", TorchPreStoEngine(
+            spec, placement=placement, kernel_mode=kernel_mode).lowered_plan, {1: counts})
+        ms = [max(p["ms"][i] for p in per) for i in range(len(per[0]["ms"]))]
+        print(f"mesh (a) {name}: host families {per[0]['host_families'] or '-'}, "
+              f"{per[0]['bytes']} bytes per rank per global batch ({per[0]['calls']} calls per "
+              f"rank over 6 batches), ms per global batch (max over ranks, CUDA events around "
+              f"copy-in, Transform and hops, after a warm-up batch) {[round(x, 3) for x in ms]} "
+              f"median {statistics.median(ms):.3f}, of it in the hops (host clock, max over "
+              f"ranks) {max(p['hop_ms'] for p in per):.3f}; launches {counts}")
+    stage = [max(r["stage_ms"][i] for r in ranks) for i in range(len(ranks[0]["stage_ms"]))]
+    print(f"mesh (a): 6 global batches x 4 placements bitwise the one-device batches; a rank's "
+          f"staging (file read, inflation, page build, shard, pin; host clock, max over ranks) "
+          f"{[round(x, 1) for x in stage]} ms; peak {max(r['peak'] for r in ranks)} bytes on a "
+          f"rank; {time.perf_counter() - t0:.1f} s with the spawn; card {card}")
+
+    # (b) the row-sharded bag at RM2's full tables
+    cfg = train_config()
+    mb = fused_batches[0]
+    ids = {k: mb[k].cpu().numpy() for k in ("multi_hot_ids", "lengths", "one_hot_ids")}
+    np.savez(work / "ids.npz", **ids)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tables = seeded_dlrm(cfg, dev).tables
+    w = mesh_weights(cfg, mb["lengths"].shape[0], dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    pooled = RS.embedding_bag(tables, mb["multi_hot_ids"], mb["lengths"], mb["one_hot_ids"])
+    (pooled * w).sum().backward()
+    b.record()
+    b.synchronize()
+    one_ms, one_peak = a.elapsed_time(b), torch.cuda.max_memory_allocated()
+    # rows checked: those the first 16 samples touch, and 64 untouched
+    rows_t, rows_r = [], []
+    s, L = cfg.data.n_sparse, cfg.data.max_sparse_len
+    for t in range(cfg.n_tables):
+        if t < s:
+            used = mb["multi_hot_ids"][:16, t][
+                torch.arange(L, device=dev) < mb["lengths"][:16, t, None]]
+        else:
+            used = mb["one_hot_ids"][:16, t - s]
+        used = used[(used >= 0) & (used < cfg.data.embedding_rows)].unique()
+        rows_t.append(torch.full_like(used, t))
+        rows_r.append(used)
+    rng = np.random.default_rng(MESH_SEED)
+    rows_t.append(torch.from_numpy(rng.integers(0, cfg.n_tables, 64)).to(dev))
+    rows_r.append(torch.from_numpy(rng.integers(0, cfg.data.embedding_rows, 64)).to(dev))
+    t_i, r_i = torch.cat(rows_t).long(), torch.cat(rows_r).long()
+    np.save(work / "pooled.npy", pooled.detach().cpu().numpy())
+    np.savez(work / "grad.npz", t=t_i.cpu().numpy(), row=r_i.cpu().numpy(),
+             grad=tables.grad[t_i, r_i].cpu().numpy(), pooled=str(work / "pooled.npy"))
+    sq = table_sq(tables.grad)
+    del tables, w, pooled
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_spmd(mesh_embedding_rank, MESH_EMB, ("data", "model"), device=dev,
+                     args=(cfg, str(work / "ids.npz"), str(work / "grad.npz")))
+    pooled_err = ranks[0]["pooled_err"]
+    grad_err = max(r["grad_err"] for r in ranks)
+    sq_mesh = sum(r["sq"] for r in ranks)
+    check(pooled_err <= 2e-5, f"mesh (b): pooled max |diff| {pooled_err}")
+    check(grad_err <= 1e-6, f"mesh (b): table-gradient rows max |diff| {grad_err}")
+    check(sum(r["rows_checked"] for r in ranks) == len(t_i), "mesh (b): rows checked")
+    check(abs(sq_mesh - sq) <= 1e-5 * sq, f"mesh (b): gradient sum of squares {sq_mesh} vs {sq}")
+    print(f"mesh (b): {cfg.n_tables} x {cfg.data.embedding_rows} x {cfg.emb_dim} tables over "
+          f"model = {MESH_EMB[1]}, B = {mb['lengths'].shape[0]}: pooled max |diff| "
+          f"{pooled_err:.3g} (bound 2e-5), {len(t_i)} table-gradient rows max |diff| "
+          f"{grad_err:.3g} (bound 1e-6), gradient sum of squares {sq_mesh:.9g} against "
+          f"{sq:.9g}; bag forward+backward {max(r['ms'] for r in ranks):.3f} ms (max over "
+          f"ranks, CUDA events; the psums staged) against {one_ms:.3f} ms on one device; peak "
+          f"{max(r['peak'] for r in ranks)} bytes per rank against {one_peak} on one device; "
+          f"all-reduce {ranks[0]['bytes']['all-reduce']} bytes per rank in "
+          f"{max(r['hop_ms'] for r in ranks):.3f} ms (host clock, max over ranks); "
+          f"{time.perf_counter() - t0:.1f} s with the spawn; card {card}")
+
+    # (c) the meshed train step against the one-device step, full tables
+    paths = []
+    for pid in range(MESH_TRAIN_STEPS):
+        paths.append(str(work / f"batch-{pid}.pt"))
+        torch.save({k: v.cpu() for k, v in fused_batches[pid].items()}, paths[-1])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = seeded_dlrm(cfg, dev)
+    opt, state, loss = train_setup(cfg, model)
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(loss, opt)
+    one_losses, one_ms = [], []
+    for pid in range(MESH_TRAIN_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, metrics = step(state, fused_batches[pid])
+        b.record()
+        b.synchronize()
+        one_losses.append(float(metrics["loss"]))
+        one_ms.append(a.elapsed_time(b))
+    one_peak = torch.cuda.max_memory_allocated()
+    del model, opt, state, loss, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    t0 = time.perf_counter()
+    ranks = run_spmd(mesh_train_rank, MESH_TRAIN, ("data", "model"), device=dev,
+                     args=(cfg, paths))
+    worst = max(abs(x - y) for r in ranks for x, y in zip(r["losses"], one_losses))
+    check(worst <= 1e-5, f"mesh (c): losses {[r['losses'] for r in ranks]} against "
+                         f"{one_losses}")
+    print(f"mesh (c): {MESH_TRAIN_STEPS} train steps on a {MESH_TRAIN} mesh, tables "
+          f"{ranks[0]['tables']} per rank, losses {ranks[0]['losses']} against one device's "
+          f"{one_losses} (max |diff| {worst:.3g}, bound 1e-5); step ms per rank "
+          f"{[[round(x, 3) for x in r['ms']] for r in ranks]} against one device's "
+          f"{[round(x, 3) for x in one_ms]} (CUDA events), of it in the hops "
+          f"{[round(r['hop_ms'], 3) for r in ranks]} ms a step (host clock); peak per rank "
+          f"{[r['peak'] for r in ranks]} bytes against {one_peak} on one device; {free} bytes "
+          f"free before the spawn; {time.perf_counter() - t0:.1f} s with the spawn; card {card}")
+
+    # (d) the int8-compressed step across pods at cut rows
+    mesh_pods(dev, dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, embedding_rows=MESH_PODS_ROWS)), paths[0], card)
+
+    # (e) the example as a user runs it: kernel level, then its system level
+    from repro_torch.examples import presto_vs_disagg
+    from repro_torch.kernels import fused
+
+    t0 = time.perf_counter()
+    fused.reset_launches()
+    pvd = presto_vs_disagg.main([])
+    by_path["presto_vs_disagg"] = {1: dict(fused.LAUNCHES)}
+    ranks = pvd["system"]
+    cfg_x = presto_vs_disagg.SYSTEM_CONFIG
+    xspec = TransformSpec.from_source(SyntheticRecSysSource(cfg_x, rows=cfg_x.rows_per_partition))
+    check(len(ranks) == int(np.prod(MESH_EXAMPLE)), f"presto_vs_disagg: {len(ranks)} ranks")
+    for rr in ranks:
+        check(rr["presto"]["calls"] == 0, "presto_vs_disagg: presto made a collective call")
+        for placement in ("hybrid", "disagg"):
+            want = family_hop_bytes(xspec, cfg_x.rows_per_partition,
+                                    rr[placement]["host_families"], MESH_EXAMPLE[0])
+            check(rr[placement]["bytes"]["collective-permute"] == want
+                  and sum(rr[placement]["bytes"].values()) == want,
+                  f"presto_vs_disagg {placement}: {rr[placement]['bytes']} against {want}")
+    print(f"mesh (e): presto_vs_disagg, kernel level at rm5 (fused {pvd['fused_ms']:.4f}, "
+          f"unfused {pvd['unfused_ms']:.4f} ms/partition, CUDA events, best of 10, launches "
+          f"{by_path['presto_vs_disagg'][1]}), system level on {len(ranks)} ranks "
+          f"{MESH_EXAMPLE}: bytes per rank equal the family bytes; "
+          f"{time.perf_counter() - t0:.1f} s; card {card}")
+    print(f"mesh: {time.perf_counter() - t_phase:.1f} s in all")
+    return by_path
+
+
 def train_config():
     """The model phase_train drives at full width: rm2 (63 tables of
     500,000 x 128, the paper's MLPs)."""
@@ -1541,11 +2105,11 @@ def phase_elastic(dev, ckpt_dir: Path) -> dict:
 
 
 def phase_examples() -> dict:
-    """The three examples on the card as a user runs them: the quickstart,
-    ``train_recsys_e2e --steps 40`` (its loss must fall) and the kernel
-    level of ``presto_vs_disagg`` (RM5, 1,024 rows, fused against unfused).
-    Returns each example's launch counts."""
-    from repro_torch.examples import presto_vs_disagg, quickstart, train_recsys_e2e
+    """Two examples on the card as a user runs them: the quickstart and
+    ``train_recsys_e2e --steps 40`` (its loss must fall); the third,
+    ``presto_vs_disagg``, runs in ``phase_mesh`` (e).  Returns each
+    example's launch counts."""
+    from repro_torch.examples import quickstart, train_recsys_e2e
     from repro_torch.kernels import fused
 
     by_path = {}
@@ -1560,18 +2124,12 @@ def phase_examples() -> dict:
     check(e2e["steps"] == E2E_STEPS
           and np.mean(e2e["losses"][-k:]) < np.mean(e2e["losses"][:k]),
           f"train_recsys_e2e: {e2e['steps']} steps, losses {e2e['losses']}")
-    fused.reset_launches()
-    pvd = presto_vs_disagg.main([])
-    by_path["presto_vs_disagg"] = {1: dict(fused.LAUNCHES)}
     card = card_line()
     print(f"examples: quickstart losses {[round(x, 4) for x in losses]}, launches "
           f"{by_path['quickstart'][1]}; train_recsys_e2e {e2e['params']} parameters, "
           f"{e2e['steps']} steps, loss first {np.mean(e2e['losses'][:k]):.4f} -> last "
           f"{np.mean(e2e['losses'][-k:]):.4f} (mean of {k}), checkpoint step "
           f"{e2e['checkpoint_step']}, launches {by_path['train_recsys_e2e'][1]}; card {card}")
-    print(f"examples: presto_vs_disagg kernel level, rm5 at 1,024 rows: fused "
-          f"{pvd['fused_ms']:.4f} ms/partition, unfused {pvd['unfused_ms']:.4f} ms/partition "
-          f"(CUDA events, best of 10), launches {by_path['presto_vs_disagg'][1]}; card {card}")
     return by_path
 
 
@@ -1752,9 +2310,9 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
     def nvals(t, per_group):
         return t.shape[0] * t.shape[1] * per_group
 
-    def lib_bytesplit():
-        f, g, _ = dense_w.shape
-        return (dense_w.view(torch.uint8).reshape(f, g, 4, 4).transpose(-1, -2)
+    def lib_bytesplit(w):
+        f, g, _ = w.shape
+        return (w.view(torch.uint8).reshape(f, g, 4, 4).transpose(-1, -2)
                 .contiguous().view(torch.float32).reshape(f, g, 4))
 
     def steps(b):
@@ -1804,7 +2362,7 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
         "bytesplit": dict(
             run=lambda: decode.bytesplit(dense_w),
             plain=lambda: ref.bytesplit_decode_grouped(dense_w), bits=True,
-            library=lib_bytesplit,
+            library=lambda: lib_bytesplit(dense_w),
             nbytes=dense_w.numel() * 4 * 2, ops=nvals(dense_w, 4) * 3, first=dense_w),
         "sigridhash": dict(
             run=lambda: sigridhash.sigridhash(sparse_raw, sp),
@@ -1827,7 +2385,8 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
         ("fused_gen", "3b rm5", "not on the paths", gen_row(gen_w5, bounds5, gp5, decoded_gen5)),
         ("bytesplit", "5b", "not split from decode_dense's", dict(
             run=lambda: decode.bytesplit(gen_w), plain=lambda: ref.bytesplit_decode_grouped(gen_w),
-            bits=True, nbytes=gen_w.numel() * 4 * 2, ops=nvals(gen_w, 4) * 3, first=gen_w)),
+            bits=True, library=lambda: lib_bytesplit(gen_w), nbytes=gen_w.numel() * 4 * 2,
+            ops=nvals(gen_w, 4) * 3, first=gen_w)),
         ("sigridhash", "6b", "not split from hash_sparse's", dict(
             run=lambda: sigridhash.sigridhash(gen_counts, gp),
             plain=lambda: ref.sigridhash_params(gen_counts, gp),
@@ -1895,7 +2454,8 @@ def phase_timings(engines: dict, store, dev, errs: dict, by_path: dict):
         print(f"kernel {name} row {label} {tuple(row['shape'])}: {row['ms']:.5f} ms (device "
               f"{fmt_ms(row['device_ms'])}, floor {fmt_ms(row['floor_device_ms'])}), "
               f"{row['bytes']} bytes, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
-              f"yardstick device {fmt_ms(row['yardstick_device_ms'])}, launches {launches}")
+              f"library {fmt_ms(row['library_ms'])}, yardstick device "
+              f"{fmt_ms(row['yardstick_device_ms'])}, launches {launches}")
         by_name[name]["more_shapes"].append({"row": label, "launches_by_path": launches, **row})
 
     # main path split per partition (megabatch 1): host staging, copy in,
@@ -1990,6 +2550,8 @@ def main() -> int:
         torch.cuda.synchronize()
         service_by_path = phase_service(engine, root / "classic", fused_batches, root)
         torch.cuda.synchronize()
+        mesh_by_path = phase_mesh(dev, engine.spec, root, fused_batches)
+        torch.cuda.synchronize()
         del fused_batches
         phase_train_parity(dev)
         train_by_path = phase_train(dev, train_batches, engine, store, root / "classic")
@@ -2010,7 +2572,7 @@ def main() -> int:
     phase_sim()
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
-               **store_by_path, **service_by_path, **train_by_path,
+               **store_by_path, **service_by_path, **mesh_by_path, **train_by_path,
                **driver_by_path, "elastic": elastic_launches, **example_by_path}
     totals = {n: sum(path_totals(by_k)[n] for by_k in by_path.values()) for n in launches[1]}
     for name, n in totals.items():

@@ -1,16 +1,26 @@
 """TorchPreStoEngine: the ISP worker's unit of work, on one CUDA device.
 
-The port of the local (mesh-less) half of ``repro.core.presto.PreStoEngine``,
-under every placement the reference takes on one device: ``presto`` (every
-column family on the ISP unit, three fused CUDA kernels), ``disagg`` (every
-family on the host), ``hybrid`` (the cost model's per-family choice) or a
-per-family dict.  A partition's encoded pages go to the device once and come
+The port of ``repro.core.presto.PreStoEngine``, under every placement
+the reference takes: ``presto`` (every column family on the ISP unit,
+three fused CUDA kernels), ``disagg`` (every family on the host),
+``hybrid`` (the cost model's per-family choice) or a per-family dict.  A partition's encoded pages go to the device once and come
 back as a train-ready mini-batch.  As in the reference, the placement says
 which families' traffic would hop to a host, and ``kernel_mode`` (or, by
 default, the placement) says how the Transform lowers: ``disagg`` alone
 keeps the fused kernels; ``kernel_mode="unfused"`` lowers the multi-pass
-plan of standalone kernels.  This package has no meshed hops: host
-families run on the engine's own device.
+plan of standalone kernels.
+
+Meshed engines (``TorchPreStoEngine(spec, mesh)``, the port of the
+reference's ``preprocess_global``) run one per rank of a
+``launch.mesh.Mesh``: each rank holds its ``data`` block of a partition's
+pages (``shard_pages``; replicated over ``model``), and
+``preprocess_global`` turns it into the same block of the global batch.
+ISP-placed families are local compute.  Host-placed families' pages hop +1
+on ``data`` before the Transform and their batch keys hop -1 after
+(``distributed.comm.ppermute``), the disaggregated pool's copy-in and
+copy-out; when ``gen`` and ``dense`` both hop, ``gen_words`` is regathered
+from the hopped dense pages instead of hopped, so ``disagg`` moves exactly
+the four page arrays.  ``presto`` makes no collective call at all.
 
 Produce path: the host reads a partition and builds its numpy pages, copies
 them into pinned memory, and the device copies them in with
@@ -53,6 +63,8 @@ from repro_torch.common.util import resolve_device
 from repro_torch.core.costmodel import DEFAULT_PLACEMENT_MODEL, partition_costs
 from repro_torch.core.opgraph import (
     FAMILIES,
+    FAMILY_BATCH_KEYS,
+    FAMILY_PAGE_VALUES,
     HOST,
     ISP,
     LoweredPlan,
@@ -71,7 +83,10 @@ from repro_torch.core.preprocess import (
     stack_pages,
 )
 from repro_torch.core.spec import TransformSpec
+from repro_torch.data.columnar import inflate_partition
 from repro_torch.data.storage import PartitionedStore
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import gather, shard
 
 # folded into cache_signature so a port engine never shares an identity with
 # a JAX engine of the same spec and placement
@@ -82,12 +97,49 @@ PLACEMENTS = ("presto", "disagg", "hybrid")
 HostPages = Dict[str, torch.Tensor]  # int32 views, pinned on CUDA engines
 
 
+def pages_pspec() -> Dict[str, tuple]:
+    """Row-group axis of every page array is sharded over the data axis."""
+    return {
+        "dense_words": (None, "data", None),
+        "sparse_words": (None, "data", None),
+        "length_words": (None, "data", None),
+        "label_words": ("data",),
+    }
+
+
+def minibatch_pspec() -> Dict[str, tuple]:
+    return {
+        "dense": ("data", None),
+        "multi_hot_ids": ("data", None, None),
+        "lengths": ("data", None),
+        "one_hot_ids": ("data", None),
+        "labels": ("data",),
+    }
+
+
+def shard_pages(pages: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's block of one partition's (classic) pages under
+    ``pages_pspec``; raises where the data axis does not divide a page's
+    row-group axis."""
+    if "sparse_refs" in pages:
+        raise ValueError("dedup pages shard only once inflated (stage_partition does it)")
+    specs = pages_pspec()
+    return {k: shard(v, mesh, specs[k]) for k, v in pages.items()}
+
+
+def gather_minibatch(mb: MiniBatch, mesh) -> MiniBatch:
+    """The global batch from every rank's block (``minibatch_pspec``)."""
+    specs = minibatch_pspec()
+    return {k: gather(v, mesh, specs[k]) for k, v in mb.items()}
+
+
 class TorchPreStoEngine:
     """Owns a TransformSpec and runs its lowered plan on one device."""
 
     def __init__(
         self,
         spec: TransformSpec,
+        mesh=None,
         *,
         placement="presto",
         kernel_mode: Optional[str] = None,
@@ -100,12 +152,17 @@ class TorchPreStoEngine:
         `kernel_mode`: "fused"/"unfused" (or any mode ``resolve_placements``
         takes) forces the kernel lowering whatever the placement; None
         follows the placement, except that "disagg" keeps the fused
-        kernels, as the reference does."""
+        kernels, as the reference does.  `mesh`: this rank's
+        ``launch.mesh.Mesh`` for ``preprocess_global`` (the device then
+        defaults to the rank's)."""
         if isinstance(placement, dict):
             family_placements, placement = dict(placement), "hybrid"
         if placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS} or a dict, got {placement!r}")
         self.spec = spec
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.placement = placement
         if placement == "hybrid":
@@ -154,8 +211,17 @@ class TorchPreStoEngine:
 
     # -- staging (host) -------------------------------------------------------
     def stage_partition(self, store: PartitionedStore, pid: int) -> Dict[str, np.ndarray]:
-        """Extract(Read): fetch + lay out one partition's pages (numpy)."""
-        return pages_from_partition(store.read(pid), self.spec)
+        """Extract(Read): fetch + lay out one partition's pages (numpy).
+
+        Meshed engines shard pages along the row-group axis
+        (``pages_pspec``), which a dedup partition's unique-geometry pages
+        would break: those inflate (``columnar.inflate_partition``, bitwise
+        faithful) to the classic per-sample layout first.  The store still
+        charges only the stored bytes."""
+        part = store.read(pid)
+        if self.mesh is not None:
+            part = inflate_partition(part)
+        return pages_from_partition(part, self.spec)
 
     def stage_megabatch(
         self, store: PartitionedStore, pids: Sequence[int]
@@ -191,15 +257,47 @@ class TorchPreStoEngine:
         return execute_plan(self.lowered_plan, pages)
 
     def preprocess_global(self, pages: Dict[str, torch.Tensor]) -> MiniBatch:
-        """The global batch of the reference's meshed path, on one device:
-        with no mesh the reference runs ``preprocess_local``, and so does
-        this engine (the meshed hops of host families are not ported)."""
-        return self.preprocess_local(pages)
+        """This rank's block of the global batch from its block of the
+        pages (``shard_pages``, on the engine's device); with no mesh,
+        ``preprocess_local``.
+
+        Host-placed families' pages hop +1 on the data axis before the
+        Transform and their mini-batch keys hop -1 after, so each rank's
+        rows come back to it.  ``presto`` (no host family) makes no
+        collective call."""
+        if self.mesh is None:
+            return self.preprocess_local(pages)
+        if "sparse_refs" in pages:
+            raise ValueError("a meshed engine takes inflated pages (stage_partition)")
+        mesh, plan = self.mesh, self.lowered_plan
+        host_fams = self.host_families()
+        hop = bool(host_fams) and mesh.shape["data"] > 1
+        env = prepare_env(pages, plan.gen_index)
+        if hop:
+            # when dense pages hop anyway, gen's source planes are
+            # regathered from them on the far side instead of hopped
+            skip_gen = "gen" in host_fams and "dense" in host_fams
+            for fam in host_fams:
+                if fam == "gen" and skip_gen:
+                    continue
+                for k in FAMILY_PAGE_VALUES[fam]:
+                    env[k] = comm.ppermute(env[k], mesh, "data", 1)
+            if skip_gen:
+                env["gen_words"] = env["dense_words"].index_select(0, plan.gen_index)
+        mb = plan.execute_env(env)
+        if hop:
+            for fam in host_fams:
+                for k in FAMILY_BATCH_KEYS[fam]:
+                    mb[k] = comm.ppermute(mb[k], mesh, "data", -1)
+        return mb
 
     def preprocess_megabatch(self, stacked: Dict[str, torch.Tensor]) -> Tuple[MiniBatch, ...]:
         """Transform a leading-axis megabatch of K partitions in ONE launch
         per kernel, then split back into K per-partition mini-batches,
-        bitwise identical to K solo runs (every stage is row-local)."""
+        bitwise identical to K solo runs (every stage is row-local).
+        Mesh-less engines only: megabatching is a per-unit local launch."""
+        if self.mesh is not None:
+            raise ValueError("megabatching is a local (per-unit) launch; the engine has a mesh")
         k = int(stacked["label_words"].shape[0])
         if k > 1 and not self.lowered_plan.megabatch_safe():
             raise ValueError(
@@ -262,17 +360,25 @@ class TorchPreStoEngine:
     # -- produce path -------------------------------------------------------------
     def produce_batch(self, store: PartitionedStore, pid: int) -> MiniBatch:
         """Extract + Transform one partition into a device-ready mini-batch.
-        Returns once the batch is complete on the device."""
-        return self.produce_batches(store, [pid])[0]
+        Returns once the batch is complete on the device.  A meshed engine
+        returns this rank's block of the global batch."""
+        if self.mesh is None:
+            return self.produce_batches(store, [pid])[0]
+        pinned = self.pin_pages(shard_pages(self.stage_partition(store, pid), self.mesh))
+        with self._on_device():
+            mb = self.preprocess_global(self.put_pages(pinned))
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        return mb
 
     def produce_batches(
         self, store: PartitionedStore, pids: Sequence[int]
     ) -> List[MiniBatch]:
         """Extract + Transform K partitions with ONE megabatched launch per
         kernel; bitwise identical to K ``produce_batch`` calls.  A plan with
-        a non-row-local stage runs them solo instead."""
+        a non-row-local stage, or a meshed engine, runs them solo instead."""
         pids = list(pids)
-        if len(pids) > 1 and not self.lowered_plan.megabatch_safe():
+        if self.mesh is not None or (len(pids) > 1 and not self.lowered_plan.megabatch_safe()):
             return [self.produce_batch(store, pid) for pid in pids]
         batches, done = self.launch(self.pin_pages(self.stage_megabatch(store, pids)))
         self.deliver(done)
@@ -296,7 +402,9 @@ class TorchPreStoEngine:
         pinned on a staging thread while the current group's copies and
         kernels run, and the host waits on the group's event only at
         delivery.  Batches are bitwise identical to serial ``produce_batch``
-        calls either way."""
+        calls either way.  Mesh-less engines only."""
+        if self.mesh is not None:
+            raise ValueError("produce_stream is a per-unit local loop; the engine has a mesh")
         pids = list(pids)
         k = max(1, int(megabatch))
         if k > 1 and not self.lowered_plan.megabatch_safe():

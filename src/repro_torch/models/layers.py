@@ -5,7 +5,8 @@ A model declares its parameters once as a nested dict of ``ParamDef``;
 from ``jax.random`` and this port from ``torch.Generator``: the two give
 different numbers from the same seed, so parity tests carry the reference's
 initialized weights across as numpy (``recsys.params_from_numpy``) instead
-of initializing twice.
+of initializing twice.  ``pspecs_from_schema`` maps the schema's logical
+axes to mesh axes through ``distributed.sharding.ShardingRules``.
 """
 
 from __future__ import annotations
@@ -64,3 +65,14 @@ def init_from_schema(
         return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
 
     return walk(schema, "")
+
+
+def pspecs_from_schema(schema: Schema, rules) -> Dict[str, Any]:
+    """Nested dict of specs (``rules.pspec`` of each leaf's logical axes)."""
+
+    def walk(node):
+        if isinstance(node, ParamDef):
+            return rules.pspec(*node.axes)
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(schema)

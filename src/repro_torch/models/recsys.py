@@ -1,7 +1,7 @@
-"""DLRM-style RecSys model (the paper's training stage, Table I), on one device.
+"""DLRM-style RecSys model (the paper's training stage, Table I).
 
-The port of ``repro.models.recsys`` without the mesh: embedding tables,
-a bottom MLP over the dense features, the pairwise-dot feature interaction
+The port of ``repro.models.recsys``: embedding tables, a bottom MLP over
+the dense features, the pairwise-dot feature interaction
 (a batched GEMM) and a top MLP to one CTR logit.  It consumes the mini-batch
 that ``repro_torch.core.preprocess`` produces (dense, multi-hot SigridHashed
 ids with their lengths, generated one-hot ids, labels).
@@ -11,11 +11,20 @@ Parameters keep the reference's names and layouts (``tables`` (T, R, D),
 ``top_b.b{i}``), so ``params_from_numpy`` / ``params_to_numpy`` carry
 weights between the two packages.  Table gradients are dense, as the
 reference's are.
+
+Under a mesh (``rules`` with a ``launch.mesh.Mesh``) a DLRM holds this
+rank's block of each parameter (``param_pspecs``): the tables row-sharded
+over ``model`` (the logical ``vocab`` axis), the MLP weights' input axis
+over ``data`` (``fsdp``), gathered for the forward (``comm.gather_shards``).
+The row-sharded ``sharded_embedding_bag`` pools each bag over the rank's own
+rows and sums pools and counts over ``model`` (``comm.psum``), one (B, T, D)
+all-reduce per batch, as the reference's shard_map does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -25,7 +34,9 @@ from torch import nn
 
 from repro_torch.common.util import resolve_device
 from repro_torch.data.synth import RMDataConfig
-from repro_torch.models.layers import ParamDef, Schema, init_from_schema
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import entry_axes, shard
+from repro_torch.models.layers import ParamDef, Schema, init_from_schema, pspecs_from_schema
 
 GROUPS = ("bottom", "bottom_b", "top", "top_b")
 
@@ -106,18 +117,40 @@ def init_params(
 
 
 def params_from_numpy(
-    tree: Dict[str, Any], cfg: RecSysConfig, device: torch.device | str | None = None
+    tree: Dict[str, Any], cfg: RecSysConfig, device: torch.device | str | None = None,
+    *, rules=None,
 ) -> DLRM:
     """The reference's params (a nested dict of numpy arrays, as
-    ``jax.tree.map(np.asarray, params)`` gives them) as a DLRM on `device`."""
+    ``jax.tree.map(np.asarray, params)`` gives them) as a DLRM on `device`.
+    With meshed `rules`, this rank's block of each (``param_pspecs``)."""
     device = resolve_device(device)
+    mesh = None if rules is None else rules.mesh
+    specs = param_pspecs(cfg, rules) if mesh is not None else None
 
-    def walk(node):
+    def walk(node, spec):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, None if spec is None else spec[k]) for k, v in node.items()}
+        if spec is not None:
+            node = shard(np.asarray(node), mesh, spec)
         return torch.from_numpy(np.array(node, copy=True)).to(device)
 
-    return DLRM(cfg, walk(tree))
+    return DLRM(cfg, walk(tree, specs))
+
+
+def param_pspecs(cfg: RecSysConfig, rules) -> Dict[str, Any]:
+    """Nested dict of each parameter's spec under `rules`."""
+    return pspecs_from_schema(model_schema(cfg), rules)
+
+
+def flat_param_pspecs(cfg: RecSysConfig, rules) -> Dict[str, tuple]:
+    """``param_pspecs`` under the DLRM's ``named_parameters`` names."""
+    out = {}
+    for key, node in param_pspecs(cfg, rules).items():
+        if isinstance(node, dict):
+            out.update({f"{key}.{k}": v for k, v in node.items()})
+        else:
+            out[key] = node
+    return out
 
 
 def params_to_numpy(model: DLRM) -> Dict[str, Any]:
@@ -130,6 +163,27 @@ def params_to_numpy(model: DLRM) -> Dict[str, Any]:
 
 # ---------------------------------------------------------------------------
 # Embedding bag
+
+
+def _bag_ids(multi_ids, lengths, one_ids, rows: int, base: int = 0):
+    """Every sample's ids flat, the multi-hot bags' S*L positions then the G
+    one-hot ones, as int64 less `base`; their validity (within the bag's
+    length and in [0, rows)); the table of each position; and each bag's
+    count of valid ids, (B, T)."""
+    b, s, L = multi_ids.shape
+    g = one_ids.shape[1]
+    dev = multi_ids.device
+    mask = torch.arange(L, device=dev) < lengths[..., None]  # (B, S, L)
+    ids = torch.cat([multi_ids.reshape(b, s * L), one_ids], dim=1).to(torch.int64)
+    if base:
+        ids = ids - base
+    valid = torch.cat([mask.reshape(b, s * L), torch.ones_like(one_ids, dtype=torch.bool)],
+                      dim=1)
+    valid &= (ids >= 0) & (ids < rows)
+    table_of = torch.cat([torch.arange(s, device=dev).repeat_interleave(L),
+                          torch.arange(s, s + g, device=dev)])
+    counts = torch.cat([valid[:, : s * L].reshape(b, s, L).sum(-1), valid[:, s * L:]], dim=1)
+    return ids, valid, table_of, counts
 
 
 def embedding_bag(
@@ -152,14 +206,8 @@ def embedding_bag(
         b, s, L = multi_ids.shape
         g = one_ids.shape[1]
         dev = multi_ids.device
-        mask = torch.arange(L, device=dev) < lengths[..., None]  # (B, S, L)
-        ids = torch.cat([multi_ids.reshape(b, s * L), one_ids], dim=1).to(torch.int64)
-        valid = torch.cat([mask.reshape(b, s * L), torch.ones_like(one_ids, dtype=torch.bool)],
-                          dim=1)
-        valid &= (ids >= 0) & (ids < r)
-        # table of each of a sample's s*L + g ids, and where each bag starts
-        table_of = torch.cat([torch.arange(s, device=dev).repeat_interleave(L),
-                              torch.arange(s, s + g, device=dev)])
+        ids, valid, table_of, counts = _bag_ids(multi_ids, lengths, one_ids, r)
+        # where each of a sample's s*L + g bags starts
         starts = torch.cat([torch.arange(s, device=dev) * L,
                             s * L + torch.arange(g, device=dev)])
         per_sample = s * L + g
@@ -169,11 +217,10 @@ def embedding_bag(
             flat.reshape(-1), tables.reshape(t * r, d), offsets, mode="sum",
             per_sample_weights=valid.reshape(-1).to(tables.dtype),
         ).reshape(b, t, d)
-        counts = torch.cat([valid[:, : s * L].reshape(b, s, L).sum(-1), valid[:, s * L:]], dim=1)
         return pooled / counts.clamp_min(1)[..., None].to(pooled.dtype)
 
 
-def _mlp(ws: nn.ParameterDict, bs: nn.ParameterDict, x: torch.Tensor, n: int) -> torch.Tensor:
+def _mlp(ws, bs, x: torch.Tensor, n: int) -> torch.Tensor:
     for i in range(n):
         x = x @ ws[f"w{i}"] + bs[f"b{i}"]
         if i < n - 1:
@@ -181,25 +228,86 @@ def _mlp(ws: nn.ParameterDict, bs: nn.ParameterDict, x: torch.Tensor, n: int) ->
     return x
 
 
-def forward(model: DLRM, minibatch: Dict[str, torch.Tensor], cfg: RecSysConfig) -> torch.Tensor:
-    """Mini-batch -> CTR logits (B,)."""
-    bot = _mlp(model.bottom, model.bottom_b, minibatch["dense"], len(cfg.bottom_mlp))
-    emb = embedding_bag(model.tables, minibatch["multi_hot_ids"], minibatch["lengths"],
-                        minibatch["one_hot_ids"])  # (B, T, D)
+def sharded_embedding_bag(
+    tables: torch.Tensor,  # (T, R_local, D): this rank's rows of every table
+    multi_ids: torch.Tensor,  # (B, S, L) global row ids
+    lengths: torch.Tensor,  # (B, S)
+    one_ids: torch.Tensor,  # (B, G)
+    mesh,
+    axis: str,
+) -> torch.Tensor:
+    """``embedding_bag`` over tables row-sharded along mesh `axis`.
+
+    Rank i owns rows [i * R_local, (i + 1) * R_local) of every table; ids
+    are offset by that base, and ids outside [0, R_local) count nothing on
+    this rank.  Only the rank's own ids enter the bag (the whole batch's
+    ids would cost a (n_ids, D) buffer of partial sums in the backward),
+    sum-pooled per bag by offsets; pooled sums and counts are then summed
+    over `axis` and divided.  The table gradient is this rank's rows of the
+    one-device gradient (``comm.psum``'s backward is the identity)."""
+    with torch.profiler.record_function("dlrm.embedding_bag"):
+        t, r, d = tables.shape
+        b = multi_ids.shape[0]
+        ids, valid, table_of, counts = _bag_ids(multi_ids, lengths, one_ids, r,
+                                                mesh.coords[axis] * r)
+        counts = counts.to(torch.int32)  # (B, T)
+        # positions run sample by sample, bag by bag: the valid ids in that
+        # order, and each bag's start among them
+        own = (ids + table_of * r)[valid]
+        offsets = torch.cumsum(counts.reshape(-1), 0) - counts.reshape(-1)
+        pooled = F.embedding_bag(own, tables.reshape(t * r, d), offsets, mode="sum")
+        pooled = comm.psum(pooled.reshape(b, t, d), mesh, axis)
+        counts = comm.psum(counts, mesh, axis)
+        return pooled / counts.clamp_min(1)[..., None].to(pooled.dtype)
+
+
+def _gather_param(p: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole parameter from this rank's block (minor axis first)."""
+    for dim, entry in enumerate(spec):
+        for axis in reversed(entry_axes(entry)):
+            p = comm.gather_shards(p, mesh, axis, dim)
+    return p
+
+
+def forward(model: DLRM, minibatch: Dict[str, torch.Tensor], cfg: RecSysConfig,
+            rules=None) -> torch.Tensor:
+    """Mini-batch -> CTR logits (B,); under meshed `rules`, this rank's
+    rows of them, from its blocks of the parameters: the MLP weights
+    gathered whole, the bag row-sharded where the tables are."""
+    mesh = None if rules is None else rules.mesh
+    whole, bag = getattr, embedding_bag
+    if mesh is not None:
+        specs = param_pspecs(cfg, rules)
+        vocab = entry_axes(specs["tables"][1])
+        if len(vocab) > 1:
+            raise ValueError(f"tables shard over one mesh axis, not {vocab}")
+
+        def whole(model, group):
+            return {k: _gather_param(v, specs[group][k], mesh)
+                    for k, v in getattr(model, group).items()}
+
+        if vocab:
+            bag = functools.partial(sharded_embedding_bag, mesh=mesh, axis=vocab[0])
+    dense = minibatch["dense"] if rules is None else rules.constrain(
+        minibatch["dense"], "batch", None)
+    bot = _mlp(whole(model, "bottom"), whole(model, "bottom_b"), dense, len(cfg.bottom_mlp))
+    emb = bag(model.tables, minibatch["multi_hot_ids"], minibatch["lengths"],
+              minibatch["one_hot_ids"])  # (B, T, D)
     z = torch.cat([bot[:, None, :], emb], dim=1)  # (B, T+1, D)
     inter = torch.bmm(z, z.transpose(1, 2))  # batched GEMM interaction
     n_int = cfg.n_tables + 1
     iu = torch.triu_indices(n_int, n_int, offset=1, device=z.device)
     flat = inter[:, iu[0], iu[1]]  # (B, n_int*(n_int-1)/2)
     top_in = torch.cat([bot, flat], dim=1)
-    return _mlp(model.top, model.top_b, top_in, len(cfg.top_mlp))[:, 0]
+    return _mlp(whole(model, "top"), whole(model, "top_b"), top_in, len(cfg.top_mlp))[:, 0]
 
 
 def loss_fn(
-    model: DLRM, minibatch: Dict[str, torch.Tensor], cfg: RecSysConfig
+    model: DLRM, minibatch: Dict[str, torch.Tensor], cfg: RecSysConfig, rules=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Stable binary cross-entropy of the logits, and the accuracy."""
-    logits = forward(model, minibatch, cfg)
+    """Stable binary cross-entropy of the logits, and the accuracy (under
+    meshed `rules`, of this rank's rows)."""
+    logits = forward(model, minibatch, cfg, rules)
     labels = minibatch["labels"]
     loss = torch.mean(
         torch.clamp_min(logits, 0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))

@@ -1,5 +1,5 @@
-"""Training: AdamW with global-norm clipping, the train steps, checkpoints
-and the elastic restart loop."""
+"""Training: AdamW with global-norm clipping, the train steps (meshed and
+int8-compressed too), checkpoints and the elastic restart loop."""
 
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import ElasticTrainer
@@ -9,11 +9,15 @@ from repro_torch.train.optimizer import (
     clip_by_global_norm,
     warmup_cosine,
 )
+from repro_torch.train.compression import crosspod_compressed_mean, init_error_state, quantize_int8
 from repro_torch.train.step import (
     apply_updates,
     init_state,
+    make_compressed_train_step,
     make_train_step,
     make_train_step_with_ingest,
+    opt_state_pspecs,
+    state_shardings,
 )
 
 __all__ = [
@@ -23,8 +27,14 @@ __all__ = [
     "adamw",
     "apply_updates",
     "clip_by_global_norm",
+    "crosspod_compressed_mean",
+    "init_error_state",
     "init_state",
+    "make_compressed_train_step",
     "make_train_step",
     "make_train_step_with_ingest",
+    "opt_state_pspecs",
+    "quantize_int8",
+    "state_shardings",
     "warmup_cosine",
 ]

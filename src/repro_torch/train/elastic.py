@@ -10,12 +10,13 @@ device -> build a state and restore the latest checkpoint into it -> train
 drill is the port's ``ctrlplane.FailureInjector``, the one the pool-side
 chaos drills use.
 
-Fields renamed from the reference, and why: the port runs on one device
-with no mesh, so ``make_mesh`` is ``make_device`` (() -> the device this
+Fields renamed from the reference, and why: the trainer runs on one
+device with no mesh (a meshed incarnation would re-spawn its world, which
+is not ported), so ``make_mesh`` is ``make_device`` (() -> the device this
 incarnation runs on), and ``make_state``/``make_step`` take that device.
-The reference's ``state_shardings`` has no counterpart: ``restore`` copies
-each leaf into the fresh state's own tensors, which already lie on the
-device.
+The reference's ``state_shardings`` field has no counterpart here:
+``restore`` copies each leaf into the fresh state's own tensors, which
+already lie on the device.
 
 On the card a state is tens of GiB.  When ``run`` fails it drops its own
 references to the state and the step before the exception leaves it, so

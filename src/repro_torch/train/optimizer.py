@@ -9,6 +9,12 @@ of the card's 80 GB, so the update takes no full-size temporary.  The clip
 scale is folded into the Adam pass, and every tensor is updated in chunks of
 at most ``CHUNK_ELEMS`` elements along its first axis, so the temporaries of
 a step are two chunks.
+
+Under a mesh each rank updates its blocks of the parameters; the clip's
+global norm sums the squares of sharded leaves over their mesh axes and
+counts replicated leaves once (``sq_sum``, built by
+``train.step.mesh_sq_sum``), the norm of the global gradient that the
+reference takes.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+SqSum = Callable[[Tensors], torch.Tensor]  # per-leaf squares -> global sum
 
 CHUNK_ELEMS = 1 << 26  # 256 MB of f32: one RM2 table is 64M elements
 
@@ -52,29 +59,46 @@ def _chunks(t: torch.Tensor):
     return t.split(max(1, CHUNK_ELEMS // t[0].numel()), dim=0)
 
 
-def _global_norm(grads: Tensors) -> torch.Tensor:
+def leaf_squares(grads: Tensors) -> Tensors:
+    """Each gradient's sum of squares, an f32 scalar tensor by name: on the
+    card one read of each gradient; on the CPU, where norms accumulate in
+    order (1e-4 off at 5M elements), torch.sum's pairwise sums, in chunks
+    that keep the squares' temporaries small."""
+    gs = {k: g.to(torch.float32) for k, g in grads.items()}
+    if next(iter(gs.values())).device.type == "cuda":
+        norms = torch._foreach_norm(list(gs.values()))
+        return {k: torch.square(n) for k, n in zip(gs, norms)}
+    return {k: torch.sum(torch.stack([torch.sum(torch.square(c)) for c in _chunks(g)]))
+            for k, g in gs.items()}
+
+
+def _local_sq_sum(squares: Tensors) -> torch.Tensor:
+    return torch.sum(torch.stack(list(squares.values())))
+
+
+def _global_norm(grads: Tensors, sq_sum: SqSum | None = None) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, as an f32 tensor on the
-    gradients' device (no host sync)."""
-    gs = [g.to(torch.float32) for g in grads.values()]
-    if gs[0].device.type == "cuda":  # one read of each gradient, tree-summed
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
-    # on the CPU, norms accumulate in order (1e-4 off at 5M elements) and
-    # torch.sum pairwise; chunks keep the squares' temporaries small
-    squares = [torch.sum(torch.square(c)) for g in gs for c in _chunks(g)]
-    return torch.sqrt(torch.sum(torch.stack(squares)))
+    gradients' device (no host sync).  `sq_sum` adds up the per-leaf
+    squares (``leaf_squares``): by default this rank's, under a mesh into
+    the global sum (``train.step.mesh_sq_sum``)."""
+    return torch.sqrt((sq_sum or _local_sq_sum)(leaf_squares(grads)))
 
 
-def _clip_scale(grads: Tensors, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _clip_scale(
+    grads: Tensors, max_norm: float, sq_sum: SqSum | None = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scale, global norm) as f32 tensors on the gradients' device, without
     a host sync: scale = min(1, max_norm / max(norm, 1e-9))."""
-    gn = _global_norm(grads)
+    gn = _global_norm(grads, sq_sum)
     return torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0), gn
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tuple[Tensors, torch.Tensor]:
+def clip_by_global_norm(
+    grads: Tensors, max_norm: float, sq_sum: SqSum | None = None
+) -> Tuple[Tensors, torch.Tensor]:
     """Scale every gradient IN PLACE so the global norm is at most
     `max_norm`; returns the gradients and their norm before clipping."""
-    scale, gn = _clip_scale(grads, max_norm)
+    scale, gn = _clip_scale(grads, max_norm, sq_sum)
     torch._foreach_mul_(list(grads.values()), scale)
     return grads, gn
 
@@ -86,9 +110,10 @@ def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tuple[Tensors, torch
 class Optimizer:
     # params (name -> tensor) -> state
     init: Callable[[Tensors], Dict[str, Any]]
-    # (grads, state, params) -> (state, metrics); params, state and grads
-    # are updated in place
-    update: Callable[[Tensors, Dict[str, Any], Tensors], Tuple[Dict[str, Any], Tensors]]
+    # (grads, state, params[, sq_sum]) -> (state, metrics); params, state
+    # and grads are updated in place; under a mesh, sq_sum makes the clip's
+    # norm the global one
+    update: Callable[..., Tuple[Dict[str, Any], Tensors]]
 
 
 def adamw(
@@ -105,9 +130,10 @@ def adamw(
         }
 
     @torch.no_grad()
-    def update(grads: Tensors, state: Dict[str, Any], params: Tensors):
+    def update(grads: Tensors, state: Dict[str, Any], params: Tensors,
+               sq_sum: SqSum | None = None):
         with torch.profiler.record_function("adamw"):
-            scale, gnorm = _clip_scale(grads, clip_norm)
+            scale, gnorm = _clip_scale(grads, clip_norm, sq_sum)
             count = state["count"] + 1
             lr = lr_fn(count).to(scale.device)
             neg_lr = -lr

@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.train.checkpoint", "repro_torch.train.elastic",
             "repro_torch.launch.train", "repro_torch.core.simclock",
             "repro_torch.examples.quickstart", "repro_torch.examples.train_recsys_e2e",
-            "repro_torch.examples.presto_vs_disagg"} <= set(modules)
+            "repro_torch.examples.presto_vs_disagg", "repro_torch.launch.mesh",
+            "repro_torch.distributed.comm", "repro_torch.distributed.sharding",
+            "repro_torch.train.compression"} <= set(modules)
     script = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
