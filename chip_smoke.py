@@ -70,6 +70,15 @@ just after:
   checkpoints every 2 steps, a failure at step 3 whose state is released
   while the exception is held, a second incarnation that restores step 2
   and ends at step 4 within 1e-5 of a run that never failed;
+* the meshed elastic drill (``phase_mesh_elastic``): ``ElasticTrainer``
+  over a (1, 2) world of ranks sharing the card (rm2's features and MLPs,
+  5,000-row tables), checkpoints of the sharded state every 2 steps in the
+  global format, a failure at step 3 whose ranks exit and return their
+  device memory, the meshed save byte for byte a one-device save of the
+  same state, resumes on (1, 2) (within 1e-5 of a straight run there) and
+  on one device: in f64 within 1e-5 of a straight one-device run; in f32,
+  where the mesh's order of sums flips a first-step ReLU (measured), to
+  the train rule beside a straight mesh run's own distance;
 * the meshed paths (``phase_mesh``, after the service): ranks that share
   the card, spawned by ``launch.mesh.run_spmd`` and joined by gloo with
   every hop staged through pinned host memory (NCCL refuses two ranks on
@@ -92,6 +101,14 @@ just after:
   and ``train_recsys_e2e --steps 40`` (its loss must fall);
 * the simulator (``phase_sim``): one seeded ``SimHarness`` schedule of
   1,000 sessions with kills and a join, replayed twice, the traces equal;
+* the dense LM serving path (``phase_lm_serve``): reduced h2o-danube,
+  gemma-7b and gemma3-12b in f32 on the card against the port's CPU run
+  (1e-4, greedy tokens equal); the full h2o-danube-1.8b in bf16, batch 4,
+  a prompt of 8,192 tokens and 32 generated (prefill s, decode ms a step,
+  tok/s, peak bytes, the decode step's byte floor), the first and last
+  decode steps held against a prefill's logits at their positions; and
+  ``repro_torch.launch.serve`` with its defaults; none of the eight
+  kernels launched;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -111,11 +128,12 @@ line.  Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import threading
@@ -127,6 +145,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.common.util import card_line  # noqa: E402
+
+CARD = torch.device("cuda", 0)  # the one card the script runs on
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
@@ -238,9 +260,25 @@ TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # record_function ranges of the 
 DRIVER_PARTITIONS, DRIVER_STEPS = 6, 4
 CKPT_CONFIG = "rm1"
 # the elastic drill: RM2's feature geometry with tables cut from 500,000 to
-# 25,000 rows (205.9M parameters, 2.47 GB checkpoints, written 3 times), 4
+# 25,000 rows (205.9M parameters, 2.47 GB checkpoints, written twice), 4
 # steps, a failure at 3; the writes of the whole run stay under the disk's cap
 ELASTIC_ROWS, ELASTIC_STEPS = 25_000, 4
+# the meshed elastic drill (phase_mesh_elastic): RM2's feature geometry and
+# MLPs with tables cut to 5,000 rows (0.536 GB checkpoints in f32, 4 saves;
+# 0.714 GB in the f64 control, 2 saves), ranks sharing the card; a failure
+# at step 3 on MESH_ELASTIC, resumes on it and on one device
+MESH_ELASTIC, MESH_ELASTIC_ROWS = (1, 2), 5_000
+# the LM serving path (phase_lm_serve): reduced-width parity on the card
+# against the CPU, then the full h2o-danube-1.8b in bf16
+LM_PARITY_ARCHS, LM_PARITY_PROMPT, LM_PARITY_DECODE = (
+    ("h2o-danube-1.8b", "gemma-7b", "gemma3-12b"), 96, 8)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "h2o-danube-1.8b", 4, 8192, 32
+LM_CHECK_LEN = 9216  # the prefill that holds decode: a multiple of the 1,024-token kv block
+# max |decode - prefill| logits in bf16 at full width: the bound of the CPU
+# test (tests/test_torch_lm_serve.py), about three bf16 ulps at the logits'
+# size; what a planted fault (a step one position late) moves is printed
+LM_BF16_TOL = 0.05
+LM_SEED = 0
 E2E_STEPS = 40  # train_recsys_e2e's steps on the card
 SIM_SEED = 11
 # the meshed paths (phase_mesh): ranks sharing the card, spawned per world
@@ -262,13 +300,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def words(rng, shape, device) -> torch.Tensor:
@@ -1477,7 +1508,7 @@ def phase_mesh(dev, spec, root: Path, fused_batches: dict) -> dict:
     from repro_torch.models import recsys as RS
 
     t_phase = time.perf_counter()
-    card = card_line()
+    card = card_line(CARD)
     work = root / "mesh"
     work.mkdir()
     world = int(np.prod(MESH_PRE))
@@ -1787,7 +1818,7 @@ def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
     print(f"train: {len(batches)} steps of {rows} rows, losses {losses}")
     print(f"train: step time {step_ms:.3f} ms (CUDA events, median of the {len(times)} "
           f"unprofiled steps; all {[round(t, 3) for t in times]}), {rows / step_ms * 1e3:.1f} "
-          f"training samples/s; card {card_line()}")
+          f"training samples/s; card {card_line(CARD)}")
     busy_ms = train_split(prof)
     if busy_ms is not None:
         print(f"train: device busy {busy_ms:.3f} ms of the {step_ms:.3f} ms median step, idle "
@@ -1817,7 +1848,7 @@ def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
           f"{launches}")
     print(f"train: peak memory {peak} bytes ({peak / 2**30:.2f} GiB) of "
           f"{torch.cuda.get_device_properties(dev).total_memory} (max_memory_allocated); "
-          f"card {card_line()}")
+          f"card {card_line(CARD)}")
 
     # the Fig. 9 loop: the trainer drains a service session over the files
     marks = []
@@ -1851,7 +1882,7 @@ def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
           f"train {pstats.train_time_s:.4f} s of {pstats.wall_time_s:.4f} s wall, reissues "
           f"{pstats.reissues}; step times fed by the session {[round(t, 3) for t in fed_ms]} "
           f"ms (CUDA events; median {statistics.median(fed_ms):.3f}) against {step_ms:.3f} ms "
-          f"for the direct step above; launches {pipe_launches}; card {card_line()}")
+          f"for the direct step above; launches {pipe_launches}; card {card_line(CARD)}")
     del model, state, opt, step, ingest, metrics, pages, session, pmetrics
     torch.cuda.empty_cache()
     check(torch.cuda.memory_allocated() < 4 << 30, "the trainer's memory was not freed")
@@ -1940,7 +1971,7 @@ def run_driver(engine, rm: str, ckpt_dir: Path | None) -> dict:
           and all(np.isfinite(out["losses"])), f"driver: {out['steps']} steps, {out['losses']}")
     print(f"driver: {' '.join(argv)}: {out['steps']} steps, losses {out['losses']}, step "
           f"times {[round(t, 3) for t in out['step_ms']]} ms (CUDA events), launches "
-          f"{launches}, {wall:.2f} s in all; card {card_line()}")
+          f"{launches}, {wall:.2f} s in all; card {card_line(CARD)}")
     gc.collect()
     torch.cuda.empty_cache()
     check(torch.cuda.memory_allocated() < 4 << 30, "the driver's state was not freed")
@@ -1971,7 +2002,7 @@ def phase_driver(engine, ckpt_dir: Path) -> dict:
           f"({saved['bytes'] / 1e9:.2f} GB): host snapshot {saved['snapshot_s']:.3f} s "
           f"({saved['bytes'] / 1e9 / saved['snapshot_s']:.3f} GB/s), write "
           f"{saved['write_s']:.3f} s ({saved['bytes'] / 1e9 / saved['write_s']:.3f} GB/s); "
-          f"card {card_line()}")
+          f"card {card_line(CARD)}")
     return {f"driver {MAIN_CONFIG}": {1: rm2}, f"driver {CKPT_CONFIG}": {1: rm1}}
 
 
@@ -2015,7 +2046,7 @@ def phase_restore(dev, ckpt_dir: Path) -> None:
           f"zeroed state in place in {dt:.3f} s ({nbytes / 1e9 / dt:.3f} GB/s); every leaf "
           f"bitwise its .npy ({chunks} chunks, {verify_s:.3f} s); max_memory_allocated during "
           f"the restore {peak} bytes, the state {nbytes}, other live allocations "
-          f"{base - nbytes}, peak above the state {peak - nbytes} bytes; card {card_line()}")
+          f"{base - nbytes}, peak above the state {peak - nbytes} bytes; card {card_line(CARD)}")
     check(peak <= nbytes + (1 << 30), f"restore: peak {peak} is more than 1 GiB above the "
           f"state's {nbytes} bytes")
     del state, opt
@@ -2060,8 +2091,9 @@ def phase_elastic(dev, ckpt_dir: Path) -> dict:
         return init_state(RS.init_params(torch.Generator().manual_seed(0), cfg, device), opt)
 
     ck = CheckpointManager(str(ckpt_dir))
-    trainer = ElasticTrainer(make_device=lambda: dev, make_state=make_state,
-                             make_step=lambda device: step, ckpt=ck, checkpoint_every=2)
+    trainer = ElasticTrainer(make_mesh=lambda: dev, make_state=make_state,
+                             make_step=lambda device: step, state_shardings=None, ckpt=ck,
+                             checkpoint_every=2)
     gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -2079,10 +2111,11 @@ def phase_elastic(dev, ckpt_dir: Path) -> dict:
     check(latest == 2, f"elastic: latest step {latest} after the failure, want 2")
     check(after - before <= 64 << 20, f"elastic: {after - before} bytes still allocated "
           f"after the failure (before {before}, after {after})")
-    state, metrics = trainer.run(enumerate(batches), max_steps=ELASTIC_STEPS)
+    done, metrics = trainer.run(enumerate(batches), max_steps=ELASTIC_STEPS)
+    state, trainer.state = trainer.state, None
     torch.cuda.synchronize()
     drill_s = time.perf_counter() - t0
-    check(int(state["step"]) == ELASTIC_STEPS and ck.latest_step() == ELASTIC_STEPS,
+    check(done == int(state["step"]) == ELASTIC_STEPS and ck.latest_step() == ELASTIC_STEPS,
           f"elastic: ended at step {int(state['step'])}, latest {ck.latest_step()}")
     straight = make_state(dev)
     for mb in batches:
@@ -2096,12 +2129,664 @@ def phase_elastic(dev, ckpt_dir: Path) -> dict:
           f"checkpoint_every 2: {failed!r}; latest step {latest}; device memory "
           f"{before} bytes before the first incarnation, {after} after the failure "
           f"(exception held); the second incarnation restored step 2 and ended at step "
-          f"{int(state['step'])} (loss {float(metrics['loss']):.4f}); largest |resumed - "
-          f"straight| {worst:.3g} (bound 1e-5); {drill_s:.2f} s; card {card_line()}")
+          f"{int(state['step'])} (loss {metrics['loss']:.4f}); largest |resumed - "
+          f"straight| {worst:.3g} (bound 1e-5); {drill_s:.2f} s; card {card_line(CARD)}")
     check(worst < 1e-5, f"elastic: resumed parameters {worst} from the straight run")
     del state, straight, metrics, batches, trainer
     torch.cuda.empty_cache()
     return {1: launches}
+
+
+def mesh_elastic_config():
+    """RM2's feature geometry and MLPs with MESH_ELASTIC_ROWS-row tables."""
+    import dataclasses
+
+    full = train_config()
+    return dataclasses.replace(full, data=dataclasses.replace(
+        full.data, embedding_rows=MESH_ELASTIC_ROWS))
+
+
+def mesh_elastic_opt():
+    from repro_torch.train import adamw, warmup_cosine
+
+    return adamw(warmup_cosine(*TRAIN_LR))
+
+
+def mesh_elastic_state(where, cfg, dtype=torch.float32):
+    """make_state of the meshed drill: the MESH_SEED DLRM in `dtype` (a
+    rank's blocks on a mesh) and zero AdamW state."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import init_state
+
+    if isinstance(where, Mesh):
+        model = seeded_dlrm(cfg, where.device, ShardingRules.make(where))
+    else:
+        model = seeded_dlrm(cfg, where)
+    return init_state(model.to(dtype), mesh_elastic_opt())
+
+
+def mesh_elastic_specs(mesh, cfg):
+    """state_shardings of the meshed drill."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import recsys as RS
+
+    return RS.state_pspecs(cfg, ShardingRules.make(mesh), mesh_elastic_opt())
+
+
+def mesh_elastic_step(where, cfg, dtype=torch.float32):
+    """make_step of the meshed drill: the (meshed) train step on the rank's
+    rows of each host batch, moved to the rank's device, its floats in
+    `dtype`."""
+    from repro_torch.distributed.sharding import ShardingRules, shard
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import make_train_step
+
+    def on(v, device):
+        return v.to(device, dtype if v.is_floating_point() else v.dtype)
+
+    if not isinstance(where, Mesh):
+        step = make_train_step(lambda m, b: RS.loss_fn(m, b, cfg), mesh_elastic_opt())
+        return lambda state, batch: step(state, {k: on(v, where) for k, v in batch.items()})
+    rules = ShardingRules.make(where)
+    step = make_train_step(lambda m, b: RS.loss_fn(m, b, cfg, rules), mesh_elastic_opt(),
+                           rules=rules, param_specs=RS.flat_param_pspecs(cfg, rules))
+    row = rules.pspec("batch")
+    return lambda state, batch: step(
+        state, {k: on(shard(v, where, row), where.device) for k, v in batch.items()})
+
+
+class BatchFiles:
+    """``(step, batch)`` from ``torch.save`` files, read anew by each rank
+    of an incarnation (pickled as their paths)."""
+
+    def __init__(self, paths):
+        self.paths = [str(p) for p in paths]
+
+    def __iter__(self):
+        for i, path in enumerate(self.paths):
+            yield i, torch.load(path)
+
+
+@contextlib.contextmanager
+def relu_signs():
+    """Records ``x > 0`` of every ``torch.relu`` input while open (the
+    DLRM's MLPs call it once a hidden layer), in call order."""
+    seen, relu = [], torch.relu
+
+    def recording(x):
+        seen.append((x > 0).cpu())
+        return relu(x)
+
+    torch.relu = recording
+    try:
+        yield seen
+    finally:
+        torch.relu = relu
+
+
+def mesh_elastic_straight(where, cfg, batches) -> dict:
+    """A straight f32 run of the drill's step on `where` (a rank's mesh or
+    the card): the final state and loss, and the first step's ReLU signs
+    and table gradient (this rank's rows)."""
+    state, step = mesh_elastic_state(where, cfg), mesh_elastic_step(where, cfg)
+    out = {}
+    for i, batch in batches:
+        if i == 0:
+            with relu_signs() as out["signs"]:
+                state, metrics = step(state, batch)
+            out["grad0"] = state["params"].tables.grad.detach().clone()
+        else:
+            state, metrics = step(state, batch)
+    return dict(out, state=state, loss=float(metrics["loss"]))
+
+
+def mesh_elastic_straight_rank(mesh, cfg, batches, ckpt_dir: str) -> dict:
+    """A straight f32 run on the drill's mesh (no checkpoint): its largest
+    distance from the blocks of the resumed run's final checkpoint,
+    restored into a fresh state; and, for the comparison with one device,
+    its final parameter blocks, specs and the first step's ReLU signs and
+    table-gradient block, on the host."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import CheckpointManager
+
+    run = mesh_elastic_straight(mesh, cfg, batches)
+    params = run["state"]["params"]
+    ck = CheckpointManager(ckpt_dir)
+    resumed = ck.restore(ck.latest_step(), target=mesh_elastic_state(mesh, cfg), mesh=mesh,
+                         specs=mesh_elastic_specs(mesh, cfg))
+    with torch.no_grad():
+        worst = max(float((a - b).abs().max()) for a, b in
+                    zip(resumed["params"].parameters(), params.parameters()))
+    peak = torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda" else 0
+    # numpy, which pickles by value: a tensor would go by a shared-memory
+    # handle that dies with the rank
+    return {"worst": worst, "loss": run["loss"], "step": int(resumed["step"]), "peak": peak,
+            "params": {k: p.detach().cpu().numpy() for k, p in params.named_parameters()},
+            "specs": RS.flat_param_pspecs(cfg, ShardingRules.make(mesh)),
+            "signs": [s.numpy() for s in run["signs"]], "grad0": run["grad0"].cpu().numpy()}
+
+
+def param_drift(got: dict, want: dict, atol: float) -> tuple:
+    """(largest |got - want|, entries more than `atol` apart) over leaves
+    by name; `got` holds blocks of `want`'s leaves as ``(block, index)``."""
+    worst, over = 0.0, 0
+    with torch.no_grad():
+        for name, (block, index) in got.items():
+            d = (torch.as_tensor(block).to(want[name].device) - want[name][index]).abs()
+            worst, over = max(worst, float(d.max())), over + int((d > atol).sum())
+    return worst, over
+
+
+def sample_rows(batch: dict, samples: list, n_tables: int, rows: int) -> torch.Tensor:
+    """(T, R) bool: the table rows that `samples` of `batch` pool."""
+    out = torch.zeros((n_tables, rows), dtype=torch.bool)
+    if not samples:
+        return out
+    ids, lengths = batch["multi_hot_ids"][samples].long(), batch["lengths"][samples]
+    one = batch["one_hot_ids"][samples].long()
+    s, L = ids.shape[1:]
+    table = torch.arange(s)[None, :, None].expand_as(ids)
+    ok = (torch.arange(L) < lengths[..., None]) & (ids >= 0) & (ids < rows)
+    out[table[ok], ids[ok]] = True
+    table = (s + torch.arange(one.shape[1]))[None].expand_as(one)
+    ok = (one >= 0) & (one < rows)
+    out[table[ok], one[ok]] = True
+    return out
+
+
+def sha256_files(d: Path) -> dict:
+    import hashlib
+
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest() for p in sorted(d.iterdir())}
+
+
+def phase_mesh_elastic(dev, work: Path) -> dict:
+    """``ElasticTrainer`` over meshes: ranks that share the card
+    (``launch.mesh.World``), RM2's feature geometry and MLPs with
+    MESH_ELASTIC_ROWS-row tables, checkpoints every 2 steps in the global
+    format.  The incarnation on MESH_ELASTIC fails at step 3; its ranks exit
+    and release their device memory (``mem_get_info`` before the spawn and
+    after the world ends); the step-2 checkpoint it wrote is byte for byte
+    (sha256 of each file) a one-device save of the same state (restored on
+    one device, then saved); the drill resumes (i) on MESH_ELASTIC, its
+    parameters within 1e-5 of a straight run on that mesh, and (ii) on one
+    device.
+
+    (ii) crosses topologies.  The same drill in f64 holds its resume, and
+    the mesh's first two steps, within 1e-5 of a straight one-device run.
+    In f32 the mesh pools the bag in another order; the one-ulp
+    differences flip a few ReLUs of the first step, which changes the
+    gradient of every table row those samples pool, turns small gradient
+    entries (below AdamW's eps) to the other sign, and moves the
+    parameters of every later step.  The phase measures that on the first
+    step (ReLU signs, table-gradient signs and their size, and the rows the
+    flipped samples pool) and holds the f32 resume to the train rule:
+    every entry within 2 lr a step, and past lr/100 no more entries than a
+    straight run on the mesh, with no restart, has (the first step's
+    flips, which both histories share) and 1% of the entries more (steps
+    2 and 3, which the resume runs on another topology).
+    Returns the launch counts of producing the drill's 4 batches."""
+    import functools
+
+    from repro_torch.core.presto import TorchPreStoEngine
+    from repro_torch.core.spec import TransformSpec
+    from repro_torch.data.storage import PartitionedStore
+    from repro_torch.data.synth import SyntheticRecSysSource
+    from repro_torch.distributed.sharding import block_index
+    from repro_torch.kernels import fused
+    from repro_torch.launch.mesh import Mesh, World
+    from repro_torch.train import CheckpointManager, ElasticTrainer
+
+    t_phase = time.perf_counter()
+    card = card_line(CARD)
+    cfg = mesh_elastic_config()
+    src = SyntheticRecSysSource(cfg.data, rows=MAIN_ROWS)
+    engine = TorchPreStoEngine(TransformSpec.from_source(src))
+    store = PartitionedStore(ELASTIC_STEPS, num_devices=4, source=src)
+    work.mkdir(parents=True, exist_ok=True)
+    paths = []
+    fused.reset_launches()
+    for pid in range(ELASTIC_STEPS):
+        batch = engine.produce_batch(store, pid)
+        paths.append(work / f"batch-{pid}.pt")
+        torch.save({k: v.cpu() for k, v in batch.items()}, paths[-1])
+    torch.cuda.synchronize()
+    launches = dict(fused.LAUNCHES)
+    check_launches("mesh elastic", engine.lowered_plan, {1: launches})
+    del batch, engine
+    batches = BatchFiles(paths)
+    axes = ("data", "model")
+    world = World(MESH_ELASTIC, axes, dev)
+    lr = TRAIN_LR[0]
+
+    def trainer(where, root: Path, dtype=torch.float32) -> ElasticTrainer:
+        return ElasticTrainer(
+            make_mesh=lambda: where,
+            make_state=functools.partial(mesh_elastic_state, cfg=cfg, dtype=dtype),
+            make_step=functools.partial(mesh_elastic_step, cfg=cfg, dtype=dtype),
+            state_shardings=functools.partial(mesh_elastic_specs, cfg=cfg),
+            ckpt=CheckpointManager(str(root), async_save=False), checkpoint_every=2)
+
+    def fail(root: Path, dtype=torch.float32) -> None:
+        try:
+            trainer(world, root, dtype).run(batches, max_steps=ELASTIC_STEPS, fail_at=3)
+            raise SmokeFailure("mesh elastic: the injected failure did not fire")
+        except RuntimeError as exc:
+            if "SimulatedFailure: simulated failure at step 3" not in str(exc):
+                raise
+        latest = CheckpointManager(str(root)).latest_step()
+        check(latest == 2, f"mesh elastic: latest step {latest} after the failure, want 2")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info(dev)[0]
+    failed = work / "failed"
+    t0 = time.perf_counter()
+    fail(failed)
+    fail_s = time.perf_counter() - t0
+    free_after = torch.cuda.mem_get_info(dev)[0]
+    for _ in range(20):  # an exited process's memory may take a moment to return
+        if free_after >= free_before - (64 << 20):
+            break
+        time.sleep(0.5)
+        free_after = torch.cuda.mem_get_info(dev)[0]
+    check(free_after >= free_before - (64 << 20), f"mesh elastic: {free_before} bytes free "
+          f"before the failed world, {free_after} after it ended")
+
+    # the meshed save against a one-device save of the same global state
+    state = mesh_elastic_state(dev, cfg)
+    CheckpointManager(str(failed)).restore(2, target=state)
+    one = work / "one"
+    ck_one = CheckpointManager(str(one), async_save=False)
+    ck_one.save(2, state)
+    meshed_sha = sha256_files(failed / "step_000000002")
+    one_sha = sha256_files(one / "step_000000002")
+    nbytes = ck_one.last_save["bytes"]
+    check(meshed_sha == one_sha, "mesh elastic: the meshed save's files differ from a "
+          f"one-device save of the same state: {sorted(k for k in one_sha if meshed_sha.get(k) != one_sha[k])}")
+    shutil.rmtree(one)
+    del state
+
+    # resumes, from hard links of the failed run's files (no second write)
+    resumed = {}
+    for name, where in (("mesh", world), ("one device", dev)):
+        root = work / f"resume {name}"
+        shutil.copytree(failed, root, copy_function=os.link)
+        t0 = time.perf_counter()
+        tr = trainer(where, root)
+        done, metrics = tr.run(batches, max_steps=ELASTIC_STEPS)
+        resumed[name] = {"root": root, "s": time.perf_counter() - t0, "loss": metrics["loss"],
+                         "state": tr.state}
+        check(done == ELASTIC_STEPS, f"mesh elastic: the {name} resume ended at step {done}")
+    shutil.rmtree(failed)
+
+    # straight f32 runs on one device and on the mesh, the latter also
+    # held against the mesh's resume (i)
+    straight = mesh_elastic_straight(dev, cfg, batches)
+    want = dict(straight["state"]["params"].named_parameters())
+    got = dict(resumed["one device"].pop("state")["params"].named_parameters())
+    one_worst, one_over = param_drift({k: (p, (slice(None),) * p.dim()) for k, p in got.items()},
+                                      want, lr / 100)
+    n_params = sum(p.numel() for p in want.values())
+    loss_drift = abs(resumed["one device"]["loss"] - straight["loss"])
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = world.run(mesh_elastic_straight_rank,
+                      args=(cfg, batches, str(resumed["mesh"]["root"])))
+    straight_s = time.perf_counter() - t0
+    mesh_worst = max(r["worst"] for r in ranks)
+    rank_peak = max(r["peak"] for r in ranks)
+    view = Mesh(dict(zip(axes, MESH_ELASTIC)), 0, dev, "")
+    blocks = {}  # every distinct block of the mesh's final parameters
+    for rank, r in enumerate(ranks):
+        for k, p in r["params"].items():
+            if rank == 0 or p.shape != want[k].shape:  # replicas once
+                blocks[f"{k}@{rank}"] = (p, block_index(tuple(want[k].shape), view,
+                                                        r["specs"][k], view.coords_of(rank)))
+    mesh_drift = param_drift(blocks, {k: want[k.split("@")[0]] for k in blocks}, lr / 100)
+
+    # the first step: ReLUs whose sign differs, the rows their samples
+    # pool, and the table-gradient entries whose sign differs
+    flips = [torch.nonzero(torch.from_numpy(a) != b)[:, 0]
+             for a, b in zip(ranks[0]["signs"], straight["signs"])]
+    n_relu = sum(int(f.numel()) for f in flips)
+    samples = sorted(set(torch.cat(flips).tolist())) if flips else []
+    touched = sample_rows(torch.load(paths[0]), samples, cfg.n_tables, cfg.data.embedding_rows)
+    g_one = straight["grad0"]
+    sign_rows = sign_in_touched = 0
+    g_flipped = []
+    for rank, r in enumerate(ranks):
+        index = block_index(tuple(g_one.shape), view, r["specs"]["tables"], view.coords_of(rank))
+        a, b = g_one[index], torch.from_numpy(r["grad0"]).to(dev)
+        differ = torch.sign(a) != torch.sign(b)
+        g_flipped.append(a[differ].abs())
+        rows = differ.any(-1).cpu()
+        sign_rows += int(rows.sum())
+        sign_in_touched += int((rows & touched[index[:2]]).sum())
+    g_flipped = torch.cat(g_flipped)
+    g_lo = float(g_flipped.min()) if g_flipped.numel() else float("nan")
+    g_med = float(g_flipped.median()) if g_flipped.numel() else float("nan")
+    del straight, want, blocks, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the control: the same drill in f64, where the mesh's order of sums
+    # flips no ReLU; the mesh's two steps and the one-device resume
+    # against a straight one-device run
+    f64 = work / "failed f64"
+    t0 = time.perf_counter()
+    fail(f64, torch.float64)
+    at2 = CheckpointManager(str(f64)).restore(
+        2, target=mesh_elastic_state(dev, cfg, torch.float64))
+    tr = trainer(dev, f64, torch.float64)
+    done, metrics64 = tr.run(batches, max_steps=ELASTIC_STEPS)
+    check(done == ELASTIC_STEPS, f"mesh elastic: the f64 resume ended at step {done}")
+    run64 = mesh_elastic_state(dev, cfg, torch.float64)
+    step64 = mesh_elastic_step(dev, cfg, torch.float64)
+    worst64 = {}
+    for i, batch in batches:
+        run64, m64 = step64(run64, batch)
+        if i + 1 in (2, ELASTIC_STEPS):
+            other = at2 if i + 1 == 2 else tr.state
+            with torch.no_grad():
+                worst64[i + 1] = max(float((a - b).abs().max()) for a, b in zip(
+                    other["params"].parameters(), run64["params"].parameters()))
+    loss64 = abs(metrics64["loss"] - float(m64["loss"]))
+    f64_s = time.perf_counter() - t0
+    del at2, tr, run64, step64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rule = 2 * lr * ELASTIC_STEPS  # the train rule's bound everywhere: 2 lr a step
+    print(f"mesh elastic: {cfg.name} feature geometry, tables {cfg.n_tables} x "
+          f"{MESH_ELASTIC_ROWS} x {cfg.emb_dim} ({nbytes}-byte checkpoints), ranks "
+          f"{MESH_ELASTIC} sharing the card: the failed world ({fail_s:.1f} s with the "
+          f"spawn) left step 2, {free_before} bytes free before its spawn and "
+          f"{free_after} after it ended; its save equals a one-device save of the same "
+          f"state, {len(one_sha)} files by sha256; resumed on {MESH_ELASTIC} in "
+          f"{resumed['mesh']['s']:.1f} s (loss {resumed['mesh']['loss']:.5f}), largest "
+          f"|resumed - straight on the mesh| {mesh_worst:.3g} (bound 1e-5; straight run "
+          f"{straight_s:.1f} s, peak {rank_peak} bytes a rank); resumed on one device in {resumed['one device']['s']:.1f} s; "
+          f"card {card}")
+    print(f"mesh elastic f64 control: the mesh's 2 steps {worst64[2]:.3g} from one device's, "
+          f"the one-device resume {worst64[ELASTIC_STEPS]:.3g} from a straight one-device run "
+          f"(losses {loss64:.3g} apart; bound 1e-5), {f64_s:.1f} s")
+    print(f"mesh elastic f32 across topologies (of {n_params} entries): the one-device resume "
+          f"against a straight one-device run up to {one_worst:.3g}, {one_over} entries past "
+          f"lr/100 (loss {loss_drift:.3g} apart); a straight run on {MESH_ELASTIC}, no restart, "
+          f"up to {mesh_drift[0]:.3g}, {mesh_drift[1]} past lr/100 (bounds: {rule:.3g} "
+          f"everywhere, past lr/100 at most the straight mesh run's entries and 1% more); the first "
+          f"step: {n_relu} ReLU signs differ in {len(samples)} of {src.rows} samples, which "
+          f"pool {int(touched.sum())} table rows; {sign_rows} rows have a gradient entry of "
+          f"another sign, {sign_in_touched} of them among those rows; those entries' |g| "
+          f"from {g_lo:.3g} (median {g_med:.3g}; AdamW eps 1e-8); "
+          f"{time.perf_counter() - t_phase:.1f} s in all")
+    check(mesh_worst <= 1e-5, f"mesh elastic: resumed on the mesh {mesh_worst} from straight")
+    check(max(worst64.values()) <= 1e-5 and loss64 <= 1e-6,
+          f"mesh elastic f64: {worst64} from one device's run, losses {loss64} apart")
+    check(one_worst <= rule and one_over <= mesh_drift[1] + n_params // 100,
+          f"mesh elastic: the one-device resume {one_worst} from a straight one-device run, "
+          f"{one_over} entries past lr/100 (a straight mesh run: {mesh_drift[1]})")
+    return {1: launches}
+
+
+def lm_numpy_tree(cfg, seed: int) -> dict:
+    """Seeded numpy weights of the schema's shapes: normal times the
+    schema's scale, and 0.1 times normal where the schema starts at zero
+    (the norms), so every weight moves the logits."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamDef
+
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        if isinstance(node, ParamDef):
+            x = rng.standard_normal(node.shape, dtype=np.float32)
+            if node.init != "normal":
+                return x * np.float32(0.1)
+            scale = node.scale if node.scale is not None else 1.0 / np.sqrt(max(node.fan_in(), 1))
+            return x * np.float32(scale)
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(T.model_schema(cfg))
+
+
+def lm_greedy(params, prompts, cfg, steps: int):
+    """Prefill and `steps` greedy decode steps: the prefill's last logits,
+    each step's logits, and the tokens (B, steps + 1)."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_serve_step
+
+    rules = ShardingRules.make(None)
+    p = prompts.shape[1]
+    logits, caches = T.prefill(params, prompts, cfg, rules, p + steps + 1)
+    serve = make_serve_step(lambda pr, t, c, n: T.decode_step(pr, t, c, n, cfg, rules))
+    token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    tokens, kept = [token], []
+    for i in range(steps):
+        token, lg, caches = serve(params, token, caches, p + i)
+        tokens.append(token)
+        kept.append(lg[:, -1].float())
+    return logits[:, -1].float(), kept, torch.cat(tokens, dim=1)
+
+
+def phase_lm_serve(dev) -> None:
+    """The dense LM serving path (``models.transformer``, ``launch.serve``):
+
+    (a) the reduced h2o-danube, gemma-7b and gemma3-12b in f32 from one
+        seeded numpy tree (``params_from_numpy``): prefill logits and
+        LM_PARITY_DECODE greedy decode steps on the card within
+        rtol=atol=1e-4 of the port's own CPU run, the tokens equal;
+    (b) the full h2o-danube-1.8b (random weights from LM_SEED, f32 params
+        with one bf16 copy, ``cast_weights``): batch LM_BATCH, a prompt of
+        LM_PROMPT tokens (past the 4,096 window, so swa masks whole kv
+        blocks), LM_GEN tokens generated; prefill s, decode ms a step and
+        tok/s (CUDA events), peak device bytes, and the byte floor of a
+        decode step; the first and the last decode steps' logits held
+        within LM_BF16_TOL of the prefill logits at their positions (a
+        prefill of the prompt, the generated tokens and filler to
+        LM_CHECK_LEN; attention is causal, so the logits at position t are
+        those of a prefill of the first t + 1 tokens), and how far a first
+        step planted one position late lands from them;
+    (c) ``repro_torch.launch.serve`` with its defaults.
+
+    None of the eight kernels is launched."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.kernels import fused
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_serve_step
+
+    t_phase = time.perf_counter()
+    card = card_line(CARD)
+    fused.reset_launches()
+    rng = np.random.default_rng(LM_SEED)
+
+    # (a) reduced-width parity, the card against the CPU
+    for arch in LM_PARITY_ARCHS:
+        cfg = get_arch(arch).reduced
+        tree = lm_numpy_tree(cfg, LM_SEED)
+        prompts = rng.integers(1, cfg.vocab_size, (2, LM_PARITY_PROMPT)).astype(np.int32)
+        runs = [lm_greedy(T.params_from_numpy(tree, cfg, d), torch.from_numpy(prompts).to(d),
+                          cfg, LM_PARITY_DECODE) for d in (dev, torch.device("cpu"))]
+        (gp, gl, gt), (cp, cl, ct) = runs
+        pairs = list(zip([gp] + gl, [cp] + cl))
+        errs = [float((g.cpu() - c).abs().max()) for g, c in pairs]
+        check(all(torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-4) for g, c in pairs),
+              f"lm (a) {arch}: logits {errs} from the CPU run's (rtol=atol=1e-4)")
+        check(torch.equal(gt.cpu(), ct), f"lm (a) {arch}: greedy tokens differ from the CPU's")
+        print(f"lm (a): {cfg.name} f32, prompt 2 x {LM_PARITY_PROMPT}, {LM_PARITY_DECODE} "
+              f"decode steps: logits within {max(errs):.3g} of the CPU run (rtol=atol=1e-4), "
+              f"greedy tokens equal")
+
+    # (b) the full h2o-danube-1.8b in bf16
+    cfg = get_arch(LM_ARCH).config
+    rules = ShardingRules.make(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev)
+    n_params = sum(t.numel() for t in lm_leaves(params))
+    served = T.cast_weights(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = lm_leaves(served)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    embed = served["embed"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+                               .astype(np.int32)).to(dev)
+    max_seq = LM_PROMPT + LM_GEN
+    serve_step = make_serve_step(lambda p, t, c, n: T.decode_step(p, t, c, n, cfg, rules))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    logits, caches = T.prefill(served, prompts, cfg, rules, max_seq)
+    b.record()
+    b.synchronize()
+    prefill_ms = a.elapsed_time(b)
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches.values() for t in c.values())
+    token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    tokens, marks, kept, host_ms = [token], [], {}, []
+    last = LM_GEN - 2
+    for i in range(LM_GEN - 1):
+        if i == 0:
+            # the planted fault: the first token one position late (RoPE
+            # and cache slot), attending an empty slot; the real step 1
+            # overwrites the slot it writes
+            _, lg, _ = serve_step(served, token, caches, LM_PROMPT + 1)
+            planted = lg[:, -1].float().clone()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        h0 = time.perf_counter()
+        token, lg, caches = serve_step(served, token, caches, LM_PROMPT + i)
+        host_ms.append((time.perf_counter() - h0) * 1e3)  # the host's enqueue of the step
+        b.record()
+        marks.append((a, b))
+        tokens.append(token)
+        if i in (0, last):
+            kept[i] = lg[:, -1].float().clone()
+    torch.cuda.synchronize()
+    step_ms = [x.elapsed_time(y) for x, y in marks]
+    # one more step (the cache's last slot) under the profiler: device busy
+    dec_busy, dec_launches, dec_top = lm_profile(
+        lambda: serve_step(served, token, caches, max_seq - 1))
+    decode_ms = marks[0][0].elapsed_time(marks[-1][1])
+    tok_s = LM_BATCH * (LM_GEN - 1) / (decode_ms / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(tokens, dim=1)
+    check(gen.shape == (LM_BATCH, LM_GEN) and int(gen.min()) >= 0
+          and int(gen.max()) < cfg.vocab_size, f"lm (b): generated {tuple(gen.shape)} ids "
+          f"in [{int(gen.min())}, {int(gen.max())}]")
+    check(all(bool(torch.isfinite(v).all()) for v in kept.values()), "lm (b): logits not finite")
+    del caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the byte floor of a decode step: every weight but the embedding table
+    # (its B rows instead) read once, the step's k and v written, and the
+    # cache read once, whole as allocated or only the window the step attends
+    row = embed.shape[1] * embed.element_size()
+    step_weights = weight_bytes - embed.numel() * embed.element_size() + LM_BATCH * row
+    kv = 2 * LM_BATCH * cfg.n_kv_heads * cfg.hd * 2  # k and v of one position, one layer, bf16
+    window = min(LM_PROMPT + last + 1, cfg.window) * kv * cfg.n_layers
+    floor_whole = (step_weights + cache_bytes) / PEAK_BYTES_PER_S * 1e3
+    floor_window = (step_weights + window + kv * cfg.n_layers) / PEAK_BYTES_PER_S * 1e3
+
+    # decode held against prefill at the first and last decode steps
+    filler = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        LM_BATCH, LM_CHECK_LEN - LM_PROMPT - LM_GEN)).astype(np.int32)).to(dev)
+    seq = torch.cat([prompts, gen, filler], dim=1)
+    t1 = time.perf_counter()
+    h, ck = T.prefill_hidden(served, seq, cfg, rules, LM_CHECK_LEN)
+    del ck
+    at = T._logits_head(served, h[:, [LM_PROMPT, LM_PROMPT + last]], cfg, rules).float()
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t1
+    del h
+    errs, agree = [], []
+    for j, i in enumerate((0, last)):
+        ref = at[:, j]
+        errs.append(float((kept[i] - ref).abs().max()))
+        top2 = torch.topk(ref, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LM_BF16_TOL
+        agree.append(bool(torch.equal(gen[:, i + 1][clear], ref.argmax(-1).to(torch.int32)[clear])))
+    scale = float(at.abs().max())
+    planted_err = float((planted - at[:, 0]).abs().max())
+    print(f"lm (b): {cfg.name} full width ({n_params} parameters, f32 params with one bf16 "
+          f"copy of {weight_bytes} bytes, built in {init_s:.1f} s), batch {LM_BATCH}, prompt "
+          f"{LM_PROMPT}, {LM_GEN} tokens generated: prefill {prefill_ms / 1e3:.4f} s, decode "
+          f"{LM_GEN - 1} steps {decode_ms:.3f} ms ({decode_ms / (LM_GEN - 1):.4f} ms a step; "
+          f"first {step_ms[0]:.4f}, median {statistics.median(step_ms):.4f}, last "
+          f"{step_ms[-1]:.4f}; {tok_s:.1f} tok/s; CUDA events); KV cache {cache_bytes} bytes; "
+          f"peak {peak} bytes ({base} of weights before the prefill); decode-step byte floor "
+          f"{floor_whole:.4f} ms reading the whole cache ({step_weights} weight bytes + "
+          f"{cache_bytes}), {floor_window:.4f} ms reading the window the last step attends "
+          f"({window} bytes) at {PEAK_BYTES_PER_S / 1e12} TB/s; decode against a prefill of "
+          f"{LM_CHECK_LEN} tokens at positions {LM_PROMPT} and {LM_PROMPT + last}: max |diff| "
+          f"{errs[0]:.4g} and {errs[1]:.4g} (bound {LM_BF16_TOL}; logits up to {scale:.4g}; "
+          f"a first step planted one position late {planted_err:.4g}), greedy tokens agree "
+          f"where the margin passes the bound: {agree} ({check_s:.1f} s); "
+          f"card {card}")
+    med = statistics.median(step_ms)
+    print(f"lm (b) device time (torch.profiler): a decode step {dec_busy:.4f} ms busy in "
+          f"{dec_launches} launches against the median step's {med:.4f} ms (CUDA events), idle "
+          f"{1 - dec_busy / med:.1%}; the host enqueues a step in {statistics.median(host_ms):.4f} "
+          f"ms (median; host clock); top {dec_top}")
+    check(max(errs) <= LM_BF16_TOL, f"lm (b): decode logits {errs} from the prefill's")
+    check(all(agree), "lm (b): a greedy token differs from the prefill's argmax")
+    del served, embed, leaves, seq, gen, prompts, at, planted
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the CLI with its defaults
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = serve.main([])
+    lines = buf.getvalue().splitlines()
+    print("lm (c): python -m repro_torch.launch.serve: " + " | ".join(lines))
+    check(len(lines) == 2 and lines[0].startswith(f"{LM_ARCH}: prefill(4x64)")
+          and lines[1].startswith("sample token ids:") and out["tokens"].shape == (4, 32),
+          f"lm (c): {lines}")
+    launched = {k: v for k, v in fused.LAUNCHES.items() if v}
+    check(not launched, f"lm: the LM path launched {launched}")
+    print(f"lm: none of the eight kernels launched; {time.perf_counter() - t_phase:.1f} s "
+          f"in all; card {card}")
+
+
+def lm_profile(fn, top: int = 4):
+    """Device busy ms of one call of `fn` (the sum of its kernels' and
+    copies' device time, from ``torch.profiler``), their count, and its
+    `top` kernels by device time as (name, ms, count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    evs.sort(key=lambda e: -e.device_time_total)
+    return (sum(e.device_time_total for e in evs) / 1e3, sum(e.count for e in evs),
+            [(e.key[:60], round(e.device_time_total / 1e3, 3), e.count) for e in evs[:top]])
+
+
+def lm_leaves(tree) -> list:
+    return [v for x in tree.values() for v in (lm_leaves(x) if isinstance(x, dict) else [x])]
 
 
 def phase_examples() -> dict:
@@ -2124,7 +2809,7 @@ def phase_examples() -> dict:
     check(e2e["steps"] == E2E_STEPS
           and np.mean(e2e["losses"][-k:]) < np.mean(e2e["losses"][:k]),
           f"train_recsys_e2e: {e2e['steps']} steps, losses {e2e['losses']}")
-    card = card_line()
+    card = card_line(CARD)
     print(f"examples: quickstart losses {[round(x, 4) for x in losses]}, launches "
           f"{by_path['quickstart'][1]}; train_recsys_e2e {e2e['params']} parameters, "
           f"{e2e['steps']} steps, loss first {np.mean(e2e['losses'][:k]):.4f} -> last "
@@ -2524,7 +3209,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    card = card_line()
+    card = card_line(CARD)
     dev = torch.device("cuda", 0)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2566,14 +3251,18 @@ def main() -> int:
         phase_restore(dev, ckpt_root / "driver")
         shutil.rmtree(ckpt_root / "driver")
         elastic_launches = phase_elastic(dev, ckpt_root / "elastic")
+        shutil.rmtree(ckpt_root / "elastic")
+        mesh_elastic_launches = phase_mesh_elastic(dev, ckpt_root / "mesh_elastic")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     example_by_path = phase_examples()
     phase_sim()
+    phase_lm_serve(dev)
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
                **store_by_path, **service_by_path, **mesh_by_path, **train_by_path,
-               **driver_by_path, "elastic": elastic_launches, **example_by_path}
+               **driver_by_path, "elastic": elastic_launches,
+               "mesh elastic": mesh_elastic_launches, **example_by_path}
     totals = {n: sum(path_totals(by_k)[n] for by_k in by_path.values()) for n in launches[1]}
     for name, n in totals.items():
         check(n > 0, f"{name} was never launched")
@@ -2587,7 +3276,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(card_line())
+    print(card_line(CARD))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,3 +16,20 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
             "PyTorch path"
         )
     return device
+
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (the device's name
+    alone where nvidia-smi cannot be run), or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={device.index or 0}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], check=True, capture_output=True, text=True, timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(device)

@@ -94,6 +94,21 @@ def _from_wire(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return buf.to(like.device) if buf.device != like.device else buf
 
 
+def send(x: torch.Tensor, mesh, dst: int) -> None:
+    """Send `x` to world rank `dst` over the mesh's transport.  Uncounted:
+    it moves a checkpoint's blocks, which the reference copies to the host
+    with no HLO collective."""
+    dist.send(_to_wire(mesh, x), dst)
+
+
+def recv(like: torch.Tensor, mesh, src: int) -> torch.Tensor:
+    """A tensor of `like`'s shape and dtype from world rank `src`, where the
+    transport delivers it (the host, or this rank's card under NCCL)."""
+    buf = _wire_like(mesh, like)
+    dist.recv(buf, src)
+    return buf
+
+
 def ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
     """Rank i of `axis` gets the `x` of rank i - shift (a ring shift)."""
     n = mesh.shape[axis]

@@ -135,33 +135,43 @@ def spec_size(mesh, entry: AxisVal) -> int:
     return n
 
 
-def spec_index(mesh, entry: AxisVal) -> int:
-    """This rank's block along one spec entry (row-major over its axes)."""
+def spec_index(mesh, entry: AxisVal, coords: Optional[Mapping[str, int]] = None) -> int:
+    """The block along one spec entry (row-major over its axes) of the rank
+    at `coords` (this rank's by default)."""
+    coords = mesh.coords if coords is None else coords
     i = 0
     for a in entry_axes(entry):
-        i = i * mesh.shape[a] + mesh.coords[a]
+        i = i * mesh.shape[a] + coords[a]
     return i
 
 
-def shard(x, mesh, spec: Spec):
-    """This rank's block of a global tensor (or numpy array) under `spec`.
-    Raises where a sharded axis does not divide by its blocks."""
-    if len(spec) > x.ndim:
-        raise ValueError(f"spec {spec} has more entries than the {x.ndim}-d tensor")
-    index = [slice(None)] * x.ndim
+def block_index(shape, mesh, spec: Spec, coords: Optional[Mapping[str, int]] = None) -> tuple:
+    """The slices of a global `shape` that the rank at `coords` (this rank
+    by default) holds under `spec`.  Raises where a sharded axis does not
+    divide by its blocks."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the {len(shape)}-d tensor")
+    index = [slice(0, n) for n in shape]
     for dim, entry in enumerate(spec):
         n = spec_size(mesh, entry)
         if n == 1:
             continue
-        if x.shape[dim] % n:
+        if shape[dim] % n:
             raise ValueError(
-                f"axis {dim} of a {tuple(x.shape)} tensor does not divide into "
+                f"axis {dim} of a {tuple(shape)} tensor does not divide into "
                 f"{n} blocks over {entry}"
             )
-        step = x.shape[dim] // n
-        i = spec_index(mesh, entry)
+        step = shape[dim] // n
+        i = spec_index(mesh, entry, coords)
         index[dim] = slice(i * step, (i + 1) * step)
-    return x[tuple(index)]
+    return tuple(index)
+
+
+def shard(x, mesh, spec: Spec):
+    """This rank's block of a global tensor (or numpy array, a view of it)
+    under `spec`.  Raises where a sharded axis does not divide by its
+    blocks."""
+    return x[block_index(tuple(x.shape), mesh, spec)]
 
 
 def gather(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:

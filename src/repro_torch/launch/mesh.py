@@ -102,7 +102,11 @@ class Mesh:
 
     @property
     def coords(self) -> Dict[str, int]:
-        out, r = {}, self.rank
+        return self.coords_of(self.rank)
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of `rank` (row-major over the mesh's shape)."""
+        out, r = {}, rank
         for axis in reversed(self.axis_names):
             out[axis] = r % self.shape[axis]
             r //= self.shape[axis]
@@ -111,6 +115,20 @@ class Mesh:
     @property
     def staged(self) -> bool:
         return self.transport == "gloo-staged"
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """A world of ranks to spawn: the mesh's shape and axes and the ranks'
+    device kind (CUDA unless named).  ``run`` is ``run_spmd`` over it."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    device: Any = None
+
+    def run(self, fn: Callable, *, args: tuple = (), timeout: float = 900.0) -> List[Any]:
+        return run_spmd(fn, self.shape, self.axes, device=self.device, args=args,
+                        timeout=timeout)
 
 
 def axis_ranks(shape: Sequence[int], axis: int) -> List[List[int]]:

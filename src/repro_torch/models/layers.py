@@ -1,22 +1,35 @@
-"""Schema-driven parameters: the schema half of ``repro.models.layers``.
+"""Schema-driven parameters, norms, RoPE, attention and MLPs: the port of
+``repro.models.layers``.
 
 A model declares its parameters once as a nested dict of ``ParamDef``;
 ``init_from_schema`` turns the schema into tensors.  The reference draws
 from ``jax.random`` and this port from ``torch.Generator``: the two give
 different numbers from the same seed, so parity tests carry the reference's
-initialized weights across as numpy (``recsys.params_from_numpy``) instead
-of initializing twice.  ``pspecs_from_schema`` maps the schema's logical
-axes to mesh axes through ``distributed.sharding.ShardingRules``.
+initialized weights across as numpy (``recsys.params_from_numpy``,
+``transformer.params_from_numpy``) instead of initializing twice.
+``pspecs_from_schema`` maps the schema's logical axes to mesh axes through
+``distributed.sharding.ShardingRules``.
+
+The layers keep the reference's arithmetic in plain torch ops: norms and
+attention in f32, RoPE frequencies computed in numpy float32 as the
+reference computes them, and attention as the reference's blockwise online
+softmax (q blocks of 512, kv blocks of 1024, ``-1e30`` fills, every kv block
+visited in order, fully masked ones included), with no library attention
+and no compile.  ``cp_decode_attention`` (context-parallel decode over a
+mesh) is not ported (ROADMAP A7.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import zlib
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,3 +89,235 @@ def pspecs_from_schema(schema: Schema, rules) -> Dict[str, Any]:
         return {k: walk(v) for k, v in node.items()}
 
     return walk(schema)
+
+
+def shapes_from_schema(schema: Schema, dtype: torch.dtype) -> Dict[str, Any]:
+    """Nested dict of meta tensors of each leaf's shape and `dtype` (the
+    reference's ``ShapeDtypeStruct`` tree)."""
+
+    def walk(node):
+        if isinstance(node, ParamDef):
+            return torch.empty(node.shape, dtype=dtype, device="meta")
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(schema)
+
+
+def stack_schema(schema: Schema, n: int) -> Schema:
+    """Prepend a scan ('layers') axis of length n to every leaf."""
+
+    def walk(node):
+        if isinstance(node, ParamDef):
+            return ParamDef(
+                (n,) + node.shape, ("layers",) + node.axes, node.init, node.scale
+            )
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(schema)
+
+
+def load_weight(p: torch.Tensor, rules, *axes, dtype: torch.dtype) -> torch.Tensor:
+    """A weight cast to the compute dtype (no copy when it already is), its
+    axes checked by ``rules.constrain`` (on one device the identity)."""
+    return rules.constrain(p.to(dtype), *axes)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.to(torch.float32))).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freq(d: int, theta: float) -> np.ndarray:
+    """The half-split RoPE frequencies, in numpy float32 as the reference
+    computes them."""
+    half = d // 2
+    return (theta ** (-np.arange(0, half, dtype=np.float32) / half)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freq_on(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freq`` on `device`, copied there once: a copy from host memory
+    waits for the device's queue to drain, and a decode step applies RoPE
+    twice a layer."""
+    return torch.from_numpy(rope_freq(d, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (..., S, H, D), positions (..., S) -> rotated x (half-split RoPE)."""
+    half = x.shape[-1] // 2
+    freq = _rope_freq_on(x.shape[-1], float(theta), x.device)
+    ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (prefill)
+
+
+def _pattern_mask(qpos: torch.Tensor, kpos: torch.Tensor, pattern: str, window: int,
+                  chunk: int, causal: bool) -> torch.Tensor:
+    """(Qb, KVb) bool mask from positions."""
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if pattern == "swa" and window > 0:
+        m &= (qpos[:, None] - kpos[None, :]) < window
+    if pattern == "chunked" and chunk > 0:
+        m &= torch.div(qpos[:, None], chunk, rounding_mode="floor") == torch.div(
+            kpos[None, :], chunk, rounding_mode="floor")
+    return m
+
+
+def blockwise_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, K, D)
+    v: torch.Tensor,  # (B, Skv, K, D)
+    *,
+    pattern: str = "full",
+    window: int = 0,
+    chunk: int = 0,
+    causal: bool = True,
+    q_offset: int = 0,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    segment_ids_q: Optional[torch.Tensor] = None,
+    segment_ids_kv: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Online-softmax attention, O(q_block*kv_block) memory. GQA via groups.
+    Raises where a sequence does not split into its blocks (the reference
+    asserts it)."""
+    B, Sq, H, D = q.shape
+    _, Skv, K, _ = k.shape
+    G = H // K
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Skv)
+    if Sq % q_block or Skv % kv_block:
+        raise ValueError(f"sequences of {Sq} and {Skv} do not split into blocks of "
+                         f"{q_block} and {kv_block}")
+    nq, nk = Sq // q_block, Skv // kv_block
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+
+    qr = q.reshape(B, nq, q_block, K, G, D).permute(1, 0, 3, 4, 2, 5)  # (nq, B, K, G, Qb, D)
+    kr = k.reshape(B, nk, kv_block, K, D).permute(1, 0, 3, 2, 4)  # (nk, B, K, KVb, D)
+    vr = v.reshape(B, nk, kv_block, K, D).permute(1, 0, 3, 2, 4)
+    segq = (segment_ids_q.reshape(B, nq, q_block).permute(1, 0, 2)
+            if segment_ids_q is not None else None)
+    segk = (segment_ids_kv.reshape(B, nk, kv_block).permute(1, 0, 2)
+            if segment_ids_kv is not None else None)
+
+    outs = []
+    for iq in range(nq):
+        qb = qr[iq].to(torch.float32)
+        qpos = q_offset + iq * q_block + torch.arange(q_block, device=dev)
+        m_run = torch.full((B, K, G, q_block), -1e30, dtype=torch.float32, device=dev)
+        l_run = torch.zeros((B, K, G, q_block), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, K, G, q_block, D), dtype=torch.float32, device=dev)
+        for jk in range(nk):  # every block in order, fully masked ones too
+            kpos = jk * kv_block + torch.arange(kv_block, device=dev)
+            logits = torch.einsum("bkgqd,bkcd->bkgqc", qb, kr[jk].to(torch.float32)) * scale
+            mask = _pattern_mask(qpos, kpos, pattern, window, chunk, causal)
+            if segq is not None:
+                mask = mask & (segq[iq][:, None, None, :, None] == segk[jk][:, None, None, None, :])
+            else:
+                mask = mask[None, None, None]
+            logits = torch.where(mask, logits, -1e30)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqc,bkcd->bkgqd", p, vr[jk].to(torch.float32))
+            m_run = m_new
+        out = acc / torch.clamp_min(l_run[..., None], 1e-30)
+        outs.append(out.to(q.dtype))
+    # (nq, B, K, G, Qb, D) -> (B, Sq, H, D)
+    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, K * G, D)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (single new token against a KV cache)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, K, D)
+    v_cache: torch.Tensor,  # (B, S, K, D)
+    cache_len: torch.Tensor,  # (B,) valid prefix length (new token included)
+    *,
+    pattern: str = "full",
+    window: int = 0,
+    chunk: int = 0,
+) -> torch.Tensor:
+    B, S, K, D = k_cache.shape
+    H = q.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    qr = q.reshape(B, K, G, D)
+    logits = torch.einsum("bkgd,bskd->bkgs", qr.to(torch.float32),
+                          k_cache.to(torch.float32)) * scale
+    kpos = torch.arange(S, device=q.device)[None, :]  # (1, S)
+    qpos = cache_len[:, None] - 1  # (B, 1) position of the new token
+    m = kpos < cache_len[:, None]
+    if pattern == "swa" and window > 0:
+        m &= (qpos - kpos) < window
+    if pattern == "chunked" and chunk > 0:
+        m &= torch.div(qpos, chunk, rounding_mode="floor") == torch.div(
+            kpos, chunk, rounding_mode="floor")
+    logits = torch.where(m[:, None, None, :], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+
+
+def mlp_schema(cfg, kind: str) -> Schema:
+    d, f = cfg.d_model, cfg.d_ff
+    if kind in ("swiglu", "geglu"):
+        return {
+            "w_gate": ParamDef((d, f), ("fsdp", "ff")),
+            "w_up": ParamDef((d, f), ("fsdp", "ff")),
+            "w_down": ParamDef((f, d), ("ff", "fsdp")),
+        }
+    return {
+        "w_in": ParamDef((d, f), ("fsdp", "ff")),
+        "w_out": ParamDef((f, d), ("ff", "fsdp")),
+    }
+
+
+def mlp_apply(params, x: torch.Tensor, kind: str, rules) -> torch.Tensor:
+    dt = x.dtype
+    if kind in ("swiglu", "geglu"):
+        w_gate = load_weight(params["w_gate"], rules, None, "ff", dtype=dt)
+        w_up = load_weight(params["w_up"], rules, None, "ff", dtype=dt)
+        w_down = load_weight(params["w_down"], rules, "ff", None, dtype=dt)
+        g = x @ w_gate
+        u = x @ w_up
+        g = rules.constrain(g, "batch", "seq", "ff")
+        act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
+        h = act * u
+        out = h @ w_down
+    else:
+        w_in = load_weight(params["w_in"], rules, None, "ff", dtype=dt)
+        w_out = load_weight(params["w_out"], rules, "ff", None, dtype=dt)
+        h = F.gelu(x @ w_in, approximate="tanh")
+        h = rules.constrain(h, "batch", "seq", "ff")
+        out = h @ w_out
+    return rules.constrain(out, "batch", "seq", "embed")

@@ -153,6 +153,19 @@ def flat_param_pspecs(cfg: RecSysConfig, rules) -> Dict[str, tuple]:
     return out
 
 
+def state_pspecs(cfg: RecSysConfig, rules, optimizer) -> Dict[str, Any]:
+    """The spec tree of a DLRM's TrainState ``{params, opt, step}`` under
+    `rules` (``train.step.state_shardings`` over the schema's shapes): what
+    a meshed ``ElasticTrainer.state_shardings`` gives its checkpoints."""
+    from repro_torch.train.step import state_shardings
+
+    schema = model_schema(cfg)
+    shapes = {"tables": schema["tables"].shape,
+              **{f"{g}.{k}": d.shape for g in GROUPS for k, d in schema[g].items()}}
+    meta = {k: torch.empty(v, device="meta") for k, v in shapes.items()}
+    return state_shardings(optimizer, meta, flat_param_pspecs(cfg, rules))
+
+
 def params_to_numpy(model: DLRM) -> Dict[str, Any]:
     """The model's params as the reference's nested dict of numpy arrays."""
     out: Dict[str, Any] = {"tables": model.tables.detach().cpu().numpy()}

@@ -1,0 +1,338 @@
+"""Periodic decoder LM, the serving half: the port of
+``repro.models.transformer``'s schemas, ``prefill`` and ``decode_step``.
+
+The layer stack is `n_periods` repetitions of a heterogeneous *period*
+(``cfg.period()``).  Parameters keep the reference's tree: layers stacked
+over periods under ``layers/p{i}``, each leaf with a leading ``n_periods``
+axis, so ``params_from_numpy`` carries the reference's ``init_params``
+output across.  Where the reference scans over periods, the port loops over
+the stacked axis.  Caches keep the reference's layout too:
+``(n_periods, B, max_seq, K, hd)`` per attention position ``p{i}``.
+
+Where the port differs, and why:
+
+* ``decode_step`` writes the new token's k and v into `caches` in place and
+  returns the same dict (the reference returns new arrays): a cache of the
+  full h2o-danube-1.8b at batch 4 and 8,224 positions is 2 GB of bf16.
+* Writing past the cache: the reference's ``dynamic_update_slice`` clamps a
+  write at ``cache_len >= max_seq`` onto the last slot; indexing there
+  would raise on the CPU and assert on the card, which ends the CUDA
+  context.  ``decode_step`` checks ``0 <= cache_len < max_seq`` on the host
+  and raises ``ValueError`` (ROADMAP C11).
+* ``cast_weights`` keeps one copy of every weight that ``load_weight``
+  reads (and of the embedding) in the compute dtype; ``load_weight`` then
+  casts nothing.  The numbers are those of the reference's cast on every
+  call; the norms' weights stay in the parameter dtype, as the reference
+  reads them.
+
+The dense family serves (``attn`` layers with swiglu, geglu or gelu MLPs,
+full, swa, local_global and chunked attention).  A config with a mamba or
+MoE layer raises ``NotImplementedError`` (ROADMAP A7.1) from the schema,
+the cache and both serving entry points, as does context-parallel decode
+over a mesh (A7.3); training (``loss_fn``, ``chunked_xent``, remat) waits
+for A7.4.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.util import resolve_device
+from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.layers import (
+    ParamDef,
+    Schema,
+    apply_rope,
+    blockwise_attention,
+    decode_attention,
+    init_from_schema,
+    load_weight,
+    mlp_apply,
+    mlp_schema,
+    pspecs_from_schema,
+    rmsnorm,
+    stack_schema,
+)
+
+
+def _not_ported(what: str, item: str = "A7.1"):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    """Raise for a config with a mamba or MoE layer: only attention layers
+    with dense MLPs are ported."""
+    for spec in cfg.period():
+        if spec.kind != "attn":
+            _not_ported("the mamba layer (models/ssm.py)")
+        if spec.mlp_kind == "moe":
+            _not_ported("the MoE layer (models/moe.py)")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Schemas
+
+
+def attn_schema(cfg: ModelConfig) -> Schema:
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": ParamDef((d, h * hd), ("fsdp", "heads")),
+        "wk": ParamDef((d, k * hd), ("fsdp", "kv_heads")),
+        "wv": ParamDef((d, k * hd), ("fsdp", "kv_heads")),
+        "wo": ParamDef((h * hd, d), ("heads", "fsdp")),
+    }
+
+
+def layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
+    d = cfg.d_model
+    s: Schema = {"ln1": ParamDef((d,), (None,), init="zeros"), "attn": attn_schema(cfg)}
+    if cfg.d_ff > 0:
+        s["ln2"] = ParamDef((d,), (None,), init="zeros")
+        s["mlp"] = mlp_schema(cfg, spec.mlp_kind)
+    return s
+
+
+def model_schema(cfg: ModelConfig) -> Schema:
+    _dense_only(cfg)
+    d, v = cfg.d_model, cfg.padded_vocab
+    period = {f"p{i}": layer_schema(cfg, spec) for i, spec in enumerate(cfg.period())}
+    s: Schema = {
+        "embed": ParamDef((v, d), ("vocab", None), scale=1.0),
+        "final_ln": ParamDef((d,), (None,), init="zeros"),
+        "layers": stack_schema(period, cfg.n_periods),
+    }
+    if not cfg.tie_embeddings:
+        s["head"] = ParamDef((d, v), ("fsdp", "vocab"))
+    return s
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device: torch.device | str | None = None) -> Dict[str, Any]:
+    """Parameters drawn from `generator` (not the reference's numbers: see
+    ``models.layers``), in ``cfg.param_dtype``, on `device` (CUDA unless
+    named)."""
+    return init_from_schema(generator, model_schema(cfg), dtype_of(cfg.param_dtype),
+                            resolve_device(device))
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                      device: torch.device | str | None = None) -> Dict[str, Any]:
+    """The reference's params (a nested dict of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them) as tensors on `device`,
+    checked against the schema's shapes."""
+    device = resolve_device(device)
+
+    def walk(node, schema, path):
+        if isinstance(schema, ParamDef):
+            arr = np.asarray(node)
+            if arr.shape != tuple(schema.shape):
+                raise ValueError(f"{path}: {arr.shape}, the schema {schema.shape}")
+            return torch.from_numpy(np.array(arr, copy=True)).to(device)
+        return {k: walk(node[k], schema[k], f"{path}/{k}") for k in schema}
+
+    return walk(tree, model_schema(cfg), "")
+
+
+def param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
+    return pspecs_from_schema(model_schema(cfg), rules)
+
+
+_CAST = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in", "w_out", "head", "embed")
+
+
+def cast_weights(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """`params` with one copy of each weight that the forward casts (the
+    projections, the MLPs, the head and the embedding) in ``cfg.dtype``;
+    the norms' weights are shared as they are."""
+    dt = dtype_of(cfg.dtype)
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return node.to(dt) if key in _CAST else node
+
+    return walk(params, None)
+
+
+def _period(tree: Dict[str, Any], j: int) -> Dict[str, Any]:
+    """Period j of a tree stacked over periods (views)."""
+    return {k: _period(v, j) if isinstance(v, dict) else v[j] for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+
+
+def _mlp(p, x, spec, cfg, rules) -> torch.Tensor:
+    """The reference's ``_mlp_or_moe``, dense branch."""
+    if cfg.d_ff == 0:
+        return x
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), spec.mlp_kind, rules)
+
+
+def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
+    dt = dtype_of(cfg.dtype)
+    x = params["embed"][tokens].to(dt)
+    # sqrt(d_model) rounded to the compute dtype on the host, as the
+    # reference casts it (50.596 is 50.5 in bf16): no copy to the device
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
+    return rules.constrain(x, "batch", "seq", "embed")
+
+
+def _logits_head(params, h: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
+    dt = h.dtype
+    if cfg.tie_embeddings:
+        w = params["embed"].T.to(dt)
+    else:
+        w = load_weight(params["head"], rules, None, "vocab", dtype=dt)
+    logits = h @ w
+    if cfg.padded_vocab != cfg.vocab_size:  # mask padding rows
+        valid = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, -1e30)
+    return rules.constrain(logits, "batch", "seq", "vocab")
+
+
+def _qkv(p, xn: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, rules):
+    """q and k (rotated) and v of one attention layer, (B, S, heads, hd)."""
+    b, s, _ = xn.shape
+    dt = xn.dtype
+    wq = load_weight(p["attn"]["wq"], rules, None, "heads", dtype=dt)
+    wk = load_weight(p["attn"]["wk"], rules, None, "kv_heads", dtype=dt)
+    wv = load_weight(p["attn"]["wv"], rules, None, "kv_heads", dtype=dt)
+    q = apply_rope((xn @ wq).reshape(b, s, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
+    k = apply_rope((xn @ wk).reshape(b, s, cfg.n_kv_heads, cfg.hd), positions, cfg.rope_theta)
+    v = (xn @ wv).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def _attn_out(p, out: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
+    b, s = out.shape[:2]
+    wo = load_weight(p["attn"]["wo"], rules, "heads", None, dtype=out.dtype)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ wo
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache structure, prefill, decode
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
+    """Meta tensors of the decode cache tree (the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    np_, hd, k = cfg.n_periods, cfg.hd, cfg.n_kv_heads
+    dt = dtype_of(cfg.dtype)
+    _dense_only(cfg)
+    out: Dict[str, Any] = {}
+    for i in range(len(cfg.period())):
+        shape = (np_, batch, max_seq, k, hd)
+        out[f"p{i}"] = {"k": torch.empty(shape, dtype=dt, device="meta"),
+                        "v": torch.empty(shape, dtype=dt, device="meta")}
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: torch.device | str | None = None) -> Dict[str, Any]:
+    device = resolve_device(device)
+    return {name: {k: torch.zeros(t.shape, dtype=t.dtype, device=device) for k, t in c.items()}
+            for name, c in cache_spec(cfg, batch, max_seq).items()}
+
+
+def _attn_decode(p, x: torch.Tensor, lcache: Dict[str, torch.Tensor], cache_len: int,
+                 spec: LayerSpec, cfg: ModelConfig, rules) -> torch.Tensor:
+    """One attention layer of a decode step; writes the token's k and v at
+    `cache_len` of `lcache` (this period's (B, max_seq, K, hd) views)."""
+    b = x.shape[0]
+    xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=x.device)
+    q, kt, vt = _qkv(p, xn, pos, cfg, rules)
+    lcache["k"][:, cache_len] = kt[:, 0]
+    lcache["v"][:, cache_len] = vt[:, 0]
+    valid = torch.full((b,), cache_len + 1, dtype=torch.int32, device=x.device)
+    out = decode_attention(q, lcache["k"], lcache["v"], valid, pattern=spec.attn_pattern,
+                           window=cfg.window, chunk=cfg.chunk_size)
+    return x + _attn_out(p, out, cfg, rules)
+
+
+def decode_step(
+    params,
+    token: torch.Tensor,  # (B, 1) int32
+    caches: Dict[str, Any],
+    cache_len,  # int (or a 0-d tensor): tokens already in the cache
+    cfg: ModelConfig,
+    rules,
+    *,
+    mesh=None,
+    shard_kv_seq: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One serve step: next-token logits, and `caches` with the token's k
+    and v written in place (C11: raises at ``cache_len >= max_seq``)."""
+    if shard_kv_seq and mesh is not None:
+        _not_ported("context-parallel decode (cp_decode_attention)", "A7.3")
+    _dense_only(cfg)
+    n = int(cache_len)
+    for name, c in caches.items():
+        max_seq = c["k"].shape[2]
+        if not 0 <= n < max_seq:
+            raise ValueError(f"cache_len {n} is outside the cache's {max_seq} positions "
+                             f"({name}); the reference would overwrite its last slot")
+    h = _embed_tokens(params, token, cfg, rules)
+    for j in range(cfg.n_periods):
+        pparams = _period(params["layers"], j)
+        for i, spec in enumerate(cfg.period()):
+            lp = pparams[f"p{i}"]
+            lcache = {k: t[j] for k, t in caches[f"p{i}"].items()}
+            h = _attn_decode(lp, h, lcache, n, spec, cfg, rules)
+            h = _mlp(lp, h, spec, cfg, rules)
+    h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
+    return _logits_head(params, h, cfg, rules), caches
+
+
+def prefill_hidden(
+    params,
+    tokens: torch.Tensor,  # (B, S)
+    cfg: ModelConfig,
+    rules,
+    max_seq: int,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The full forward of ``prefill``: the final-normed hidden state of
+    every position (B, S, d), and the caches filled up to S."""
+    b, s = tokens.shape
+    if s > max_seq:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of {max_seq}")
+    h = _embed_tokens(params, tokens, cfg, rules)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    caches = init_cache(cfg, b, max_seq, tokens.device)
+    for j in range(cfg.n_periods):
+        pparams = _period(params["layers"], j)
+        for i, spec in enumerate(cfg.period()):
+            lp = pparams[f"p{i}"]
+            xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+            q, kk, vv = _qkv(lp, xn, positions, cfg, rules)
+            out = blockwise_attention(q, kk, vv, pattern=spec.attn_pattern, window=cfg.window,
+                                      chunk=cfg.chunk_size, causal=True)
+            h = h + _attn_out(lp, out, cfg, rules)
+            caches[f"p{i}"]["k"][j, :, :s] = kk
+            caches[f"p{i}"]["v"][j, :, :s] = vv
+            h = _mlp(lp, h, spec, cfg, rules)
+    return rmsnorm(h, params["final_ln"], cfg.norm_eps), caches
+
+
+def prefill(
+    params,
+    tokens: torch.Tensor,  # (B, S)
+    cfg: ModelConfig,
+    rules,
+    max_seq: int,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full forward that fills caches up to S; returns last-position logits
+    (B, 1, V).  Cache tensors are allocated at max_seq; positions [0, S)
+    are written."""
+    h, caches = prefill_hidden(params, tokens, cfg, rules, max_seq)
+    return _logits_head(params, h[:, -1:, :], cfg, rules), caches

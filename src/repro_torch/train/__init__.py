@@ -1,5 +1,6 @@
 """Training: AdamW with global-norm clipping, the train steps (meshed and
-int8-compressed too), checkpoints and the elastic restart loop."""
+int8-compressed too), the serve step, checkpoints (of sharded state too)
+and the elastic restart loop (over meshes too)."""
 
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import ElasticTrainer
@@ -14,6 +15,7 @@ from repro_torch.train.step import (
     apply_updates,
     init_state,
     make_compressed_train_step,
+    make_serve_step,
     make_train_step,
     make_train_step_with_ingest,
     opt_state_pspecs,
@@ -31,6 +33,7 @@ __all__ = [
     "init_error_state",
     "init_state",
     "make_compressed_train_step",
+    "make_serve_step",
     "make_train_step",
     "make_train_step_with_ingest",
     "opt_state_pspecs",

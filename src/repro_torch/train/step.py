@@ -1,7 +1,9 @@
-"""Train step factories, on one device or on every rank of a mesh.
+"""Train step factories, on one device or on every rank of a mesh, and the
+serve step.
 
-The port of ``make_train_step``, ``make_compressed_train_step`` and
-``make_train_step_with_ingest`` of ``repro.train.step``.
+The port of ``make_train_step``, ``make_compressed_train_step``,
+``make_train_step_with_ingest`` and ``make_serve_step`` of
+``repro.train.step``.
 ``make_train_step_with_ingest`` is the
 paper's Fig. 1 pipeline in one step: encoded pages in, preprocessed by the
 engine on the card, then the model's gradients and the optimizer update.
@@ -261,3 +263,16 @@ def make_train_step_with_ingest(
         return _grads_and_update(state, optimizer, metrics)
 
     return step
+
+
+def make_serve_step(decode_fn: Callable):
+    """decode_fn(params, token, caches, cache_len) -> (logits, caches).
+    Returns serve_step(...) -> (next token (B, 1) int32, logits, caches):
+    greedy, the first of tied maxima as ``jnp.argmax`` takes."""
+
+    def serve_step(params, token, caches, cache_len):
+        logits, new_caches = decode_fn(params, token, caches, cache_len)
+        next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return next_token[:, None], logits, new_caches
+
+    return serve_step

@@ -56,9 +56,10 @@ def test_elastic_failure_restart_continues(setup, tmp_path):
 
     ck = CheckpointManager(str(tmp_path), async_save=False)
     trainer = ElasticTrainer(
-        make_device=lambda: torch.device("cpu"),
+        make_mesh=lambda: torch.device("cpu"),
         make_state=make_state,
         make_step=lambda device: setup["step"],
+        state_shardings=None,
         ckpt=ck,
         checkpoint_every=2,
     )
@@ -70,9 +71,10 @@ def test_elastic_failure_restart_continues(setup, tmp_path):
     gc.collect()
     assert made[0]() is None  # the traceback in `err` pins no state
     # new incarnation restores and finishes; replayed steps are skipped
-    state, metrics = trainer.run(batches(), max_steps=6)
-    assert int(state["step"]) == 6 and int(state["opt"]["count"]) == 6
-    assert ck.latest_step() == 6 and np.isfinite(float(metrics["loss"]))
+    step, metrics = trainer.run(batches(), max_steps=6)
+    state = trainer.state  # a one-device run keeps its final state
+    assert step == 6 and int(state["step"]) == 6 and int(state["opt"]["count"]) == 6
+    assert ck.latest_step() == 6 and np.isfinite(metrics["loss"])
     # straight-through run (no failure) matches the restarted run
     straight = make_state(torch.device("cpu"))
     for _ in range(6):
@@ -95,7 +97,8 @@ def test_bootstrap_without_a_checkpoint_keeps_the_fresh_state(setup, tmp_path):
         return fresh["state"]
 
     trainer = ElasticTrainer(lambda: torch.device("cpu"), make_state,
-                             lambda device: setup["step"], CheckpointManager(str(tmp_path)))
+                             lambda device: setup["step"], None,
+                             CheckpointManager(str(tmp_path)))
     device, state, step_fn = trainer.bootstrap()
     assert device.type == "cpu" and state is fresh["state"] and step_fn is setup["step"]
     assert int(state["step"]) == 0

@@ -44,7 +44,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.examples.quickstart", "repro_torch.examples.train_recsys_e2e",
             "repro_torch.examples.presto_vs_disagg", "repro_torch.launch.mesh",
             "repro_torch.distributed.comm", "repro_torch.distributed.sharding",
-            "repro_torch.train.compression"} <= set(modules)
+            "repro_torch.train.compression", "repro_torch.models.config",
+            "repro_torch.models.transformer", "repro_torch.launch.serve",
+            "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.mamba2_1_3b"} \
+        <= set(modules)
     script = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
