@@ -109,6 +109,17 @@ just after:
   decode steps held against a prefill's logits at their positions; and
   ``repro_torch.launch.serve`` with its defaults; none of the eight
   kernels launched;
+* the rest of LM serving (``phase_lm_families``): the reduced mamba2,
+  jamba, grok-1, llama4 and seamless in f32 on the card against the port's
+  CPU run (1e-4, greedy tokens equal); the full mamba2-1.3b and one period
+  of jamba-v0.1-52b (8 of 32 layers, bf16 params) in bf16 at batch 4, a
+  prompt of 8,192 and 32 generated (prefill s, decode ms a step, tok/s,
+  peak bytes, a decode step's launches, busy ms and idle share, its byte
+  floor), each decode held against a prefill's logits at the first and last
+  generated positions, the MoE's dropped choices counted; the full
+  seamless-m4t-medium in f32 against the CPU, then 4 x 4,096 frames encoded
+  and 32 tokens decoded in bf16; ``repro_torch.examples.serve_lm`` with its
+  defaults; none of the eight kernels launched;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -279,6 +290,25 @@ LM_CHECK_LEN = 9216  # the prefill that holds decode: a multiple of the 1,024-to
 # size; what a planted fault (a step one position late) moves is printed
 LM_BF16_TOL = 0.05
 LM_SEED = 0
+# the rest of LM serving (phase_lm_families): (d) the reduced MoE, SSM,
+# hybrid and enc-dec archs in f32 on the card against the CPU; (e) the full
+# mamba2-1.3b and (f) one period of jamba-v0.1-52b (8 of 32 layers, every
+# layer kind and width; bf16 params: f32 masters and a bf16 copy, ~79.5 GB,
+# do not fit the card) in bf16, each at LM_BATCH x LM_PROMPT with LM_GEN
+# generated; (g) the full seamless-m4t-medium, LM_BATCH x ENCDEC_FRAMES
+# frames encoded and LM_GEN tokens decoded, held in f32 against the CPU at
+# ENCDEC_CHECK (frames, steps)
+LM_FAMILY_PARITY = ("mamba2-1.3b", "jamba-v0.1-52b", "grok-1-314b",
+                    "llama4-maverick-400b-a17b", "seamless-m4t-medium")
+LM_FULL = (("mamba2-1.3b", {}), ("jamba-v0.1-52b", {"n_layers": 8, "param_dtype": "bfloat16"}))
+# max |decode - prefill| logits in bf16 at full width: twice the largest of
+# a bf16 CPU rehearsal at d_model 256 with every other width and the depth
+# kept (3 seeds, prompt 2,048: mamba2 0.0620, jamba 0.0234), rounded up to
+# a power of two (PERF.md §6); SSD's chunked prefill and its f32 recurrent
+# decode round differently
+LM_FULL_TOL = {"mamba2-1.3b": 0.125, "jamba-v0.1-52b": 0.0625}
+ENCDEC_ARCH, ENCDEC_FRAMES, ENCDEC_CHECK = "seamless-m4t-medium", 4096, (256, 8)
+ENCDEC_F32_TOL = 1e-4  # f32 on the card against the CPU, as (a) and (d)
 E2E_STEPS = 40  # train_recsys_e2e's steps on the card
 SIM_SEED = 11
 # the meshed paths (phase_mesh): ranks sharing the card, spawned per world
@@ -2536,10 +2566,11 @@ def phase_mesh_elastic(dev, work: Path) -> dict:
     return {1: launches}
 
 
-def lm_numpy_tree(cfg, seed: int) -> dict:
-    """Seeded numpy weights of the schema's shapes: normal times the
-    schema's scale, and 0.1 times normal where the schema starts at zero
-    (the norms), so every weight moves the logits."""
+def lm_numpy_tree(cfg, seed: int, schema=None) -> dict:
+    """Seeded numpy weights of the schema's shapes (the decoder-only
+    model's unless given): normal times the schema's scale, and 0.1 times
+    normal where the schema starts at zero (the norms, the SSM's ``A_log``,
+    ``D`` and ``dt_bias``), so every weight moves the logits."""
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import ParamDef
 
@@ -2554,7 +2585,7 @@ def lm_numpy_tree(cfg, seed: int) -> dict:
             return x * np.float32(scale)
         return {k: walk(v) for k, v in node.items()}
 
-    return walk(T.model_schema(cfg))
+    return walk(T.model_schema(cfg) if schema is None else schema)
 
 
 def lm_greedy(params, prompts, cfg, steps: int):
@@ -2765,6 +2796,414 @@ def phase_lm_serve(dev) -> None:
     check(not launched, f"lm: the LM path launched {launched}")
     print(f"lm: none of the eight kernels launched; {time.perf_counter() - t_phase:.1f} s "
           f"in all; card {card}")
+
+
+def encdec_greedy(params, frames, cfg, steps: int):
+    """``encode``, the cross caches and `steps` greedy decode steps from
+    token 1: the encoder output, each step's logits, and the tokens
+    (B, steps + 1)."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import encdec as E
+    from repro_torch.train import make_serve_step
+
+    rules = ShardingRules.make(None)
+    enc = E.encode(params, frames, cfg, rules)
+    caches = E.cross_caches(params, enc, cfg, steps)
+    serve = make_serve_step(lambda pr, t, c, n: E.decode_step(pr, t, c, n, cfg, rules))
+    token = torch.ones((frames.shape[0], 1), dtype=torch.int32, device=frames.device)
+    tokens, kept = [token], []
+    for i in range(steps):
+        token, lg, caches = serve(params, token, caches, i)
+        tokens.append(token)
+        kept.append(lg[:, -1].float())
+    return enc.float(), kept, torch.cat(tokens, dim=1)
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Counts what the MoE's capacity drops while the block runs: a list
+    with one (G, tb) tensor per routed block, each token's choices that
+    were dropped (the routing wrapped, its results unchanged)."""
+    from repro_torch.models import moe
+
+    route, counts = moe._route_block, []
+
+    def counted(xb, router, k, capacity):
+        dispatch, gates, aux = route(xb, router, k, capacity)
+        counts.append(k - dispatch.sum(dim=(2, 3)))
+        return dispatch, gates, aux
+
+    moe._route_block = counted
+    try:
+        yield counts
+    finally:
+        moe._route_block = route
+
+
+def total_drops(counts: list) -> int:
+    return int(round(sum(float(c.sum()) for c in counts)))
+
+
+def drops_at(counts: list, s: int, positions: list) -> int:
+    """Dropped choices at `positions` of a prefill of `s` tokens, over
+    every MoE layer (the blocks of one layer run in order, layer after
+    layer)."""
+    if not counts:
+        return 0
+    by_pos = torch.cat(counts, dim=1).reshape(counts[0].shape[0], -1, s).sum(dim=1)
+    return int(round(float(by_pos[:, positions].sum())))
+
+
+def lm_decode_run(dev, served, prompts, serve_step, prefill):
+    """`prefill(prompts)`, then LM_GEN - 1 greedy decode steps, each timed
+    by CUDA events; one more step under the profiler.  Returns a dict of
+    the times, the tokens, the logits of the first and last steps, the
+    profile, the peak bytes and the cache's bytes."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    logits, caches, start = prefill(prompts)
+    b.record()
+    b.synchronize()
+    out = {"prefill_ms": a.elapsed_time(b),
+           "cache_bytes": sum(t.numel() * t.element_size() for t in lm_leaves(caches))}
+    token = (torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+             if logits is not None else
+             torch.ones((prompts.shape[0], 1), dtype=torch.int32, device=dev))
+    steps = LM_GEN - 1 if logits is not None else LM_GEN
+    tokens, marks, kept, host_ms = [token], [], {}, []
+    for i in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        h0 = time.perf_counter()
+        token, lg, caches = serve_step(served, token, caches, start + i)
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        b.record()
+        marks.append((a, b))
+        tokens.append(token)
+        if i in (0, steps - 1):
+            kept[i] = lg[:, -1].float().clone()
+    torch.cuda.synchronize()
+    out["step_ms"] = [x.elapsed_time(y) for x, y in marks]
+    out["decode_ms"] = marks[0][0].elapsed_time(marks[-1][1])
+    out["busy"], out["launches"], out["top"] = lm_profile(
+        lambda: serve_step(served, token, caches, start + steps))
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["host_ms"] = statistics.median(host_ms)
+    out["tokens"], out["kept"], out["steps"] = torch.cat(tokens, dim=1), kept, steps
+    del caches
+    return out
+
+
+def lm_times(r: dict, batch: int) -> str:
+    med = statistics.median(r["step_ms"])
+    tok_s = batch * r["steps"] / (r["decode_ms"] / 1e3)
+    return (f"decode {r['steps']} steps {r['decode_ms']:.3f} ms ({r['decode_ms'] / r['steps']:.4f} "
+            f"ms a step; first {r['step_ms'][0]:.4f}, median {med:.4f}, last "
+            f"{r['step_ms'][-1]:.4f}; {tok_s:.1f} tok/s; CUDA events); peak {r['peak']} bytes; "
+            f"a decode step {r['busy']:.4f} ms busy in {r['launches']} launches "
+            f"(torch.profiler), idle {1 - r['busy'] / med:.1%} of the median step; the host "
+            f"enqueues a step in {r['host_ms']:.4f} ms (median; host clock); top {r['top']}")
+
+
+def lm_full(dev, arch: str, overrides: dict, rng, card: str) -> None:
+    """(e)/(f): a decoder-only arch at full width in bf16, batch LM_BATCH,
+    a prompt of LM_PROMPT and LM_GEN generated; decode held against a
+    prefill of LM_CHECK_LEN tokens at the first and last decode steps."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_serve_step
+
+    cfg = dataclasses.replace(get_arch(arch).config, **overrides)
+    tol = LM_FULL_TOL[arch]
+    rules = ShardingRules.make(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev)
+    n_params = sum(t.numel() for t in lm_leaves(params))
+    served = T.cast_weights(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(served))
+    expert_bytes = sum(t.numel() * t.element_size() for p in served["layers"].values()
+                       if "router" in p.get("mlp", {}) for k, t in p["mlp"].items()
+                       if k != "router")
+    embed = served["embed"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+                               .astype(np.int32)).to(dev)
+    max_seq = LM_PROMPT + LM_GEN
+    serve_step = make_serve_step(lambda p, t, c, n: T.decode_step(p, t, c, n, cfg, rules))
+    with moe_drops() as counts:
+        blocks = []
+
+        def prefill(x):
+            logits, caches = T.prefill(served, x, cfg, rules, max_seq)
+            blocks.append(len(counts))
+            return logits, caches, LM_PROMPT
+
+        r = lm_decode_run(dev, served, prompts, serve_step, prefill)
+        prefill_drops = total_drops(counts[:blocks[0]])
+        decode_drops = total_drops(counts[blocks[0]:])
+    gen, kept, last = r["tokens"], r["kept"], r["steps"] - 1
+    check(gen.shape == (LM_BATCH, LM_GEN) and int(gen.min()) >= 0
+          and int(gen.max()) < cfg.vocab_size, f"lm {arch}: generated {tuple(gen.shape)} ids "
+          f"in [{int(gen.min())}, {int(gen.max())}]")
+    check(all(bool(torch.isfinite(v).all()) for v in kept.values()), f"lm {arch}: logits "
+          f"not finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the byte floor of a decode step: every weight but the embedding table
+    # (its B rows instead) read once, every cache entry read once and the
+    # step's writes (attention: k and v of one position; mamba: h and conv
+    # rewritten whole)
+    row = embed.shape[1] * embed.element_size()
+    step_weights = weight_bytes - embed.numel() * embed.element_size() + LM_BATCH * row
+    spec = T.cache_spec(cfg, LM_BATCH, max_seq)
+    cache_io = 0
+    for c in spec.values():
+        for name, t in c.items():
+            nb = t.numel() * t.element_size()
+            cache_io += nb + (nb // max_seq if name in ("k", "v") else nb)
+    floor = (step_weights + cache_io) / PEAK_BYTES_PER_S * 1e3
+    sparse = ""
+    if expert_bytes:
+        share = min(cfg.n_experts, LM_BATCH * cfg.top_k) / cfg.n_experts
+        floor_sparse = (step_weights - expert_bytes * (1 - share) + cache_io) / PEAK_BYTES_PER_S * 1e3
+        sparse = (f"; the dense MoE reads all {expert_bytes} expert bytes a step, a top-"
+                  f"{cfg.top_k} dispatch of {LM_BATCH} tokens at most {share:.4g} of them: floor "
+                  f"{floor_sparse:.4f} ms")
+
+    # decode held against prefill at the first and last decode steps
+    filler = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        LM_BATCH, LM_CHECK_LEN - LM_PROMPT - LM_GEN)).astype(np.int32)).to(dev)
+    seq = torch.cat([prompts, gen, filler], dim=1)
+    t1 = time.perf_counter()
+    checked = [LM_PROMPT, LM_PROMPT + last]
+    with moe_drops() as counts:
+        h, ck = T.prefill_hidden(served, seq, cfg, rules, LM_CHECK_LEN)
+        check_drops, checked_drops = total_drops(counts), drops_at(counts, LM_CHECK_LEN, checked)
+    del ck
+    at = T._logits_head(served, h[:, checked], cfg, rules).float()
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t1
+    del h
+    errs, agree = [], []
+    for j, i in enumerate((0, last)):
+        ref = at[:, j]
+        errs.append(float((kept[i] - ref).abs().max()))
+        top2 = torch.topk(ref, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        agree.append(bool(torch.equal(gen[:, i + 1][clear], ref.argmax(-1).to(torch.int32)[clear])))
+    scale = float(at[..., :cfg.vocab_size].abs().max())  # the padded rows are -1e30
+    kinds = sorted({(s.kind, s.mlp_kind if cfg.d_ff else None) for s in cfg.period()},
+                   key=str)
+    print(f"lm {arch}: full width ({cfg.n_layers} layers of {kinds}; {n_params} parameters in "
+          f"{cfg.param_dtype}, {weight_bytes} bytes served in {cfg.dtype}, built in "
+          f"{init_s:.1f} s), batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} tokens generated: "
+          f"prefill {r['prefill_ms'] / 1e3:.4f} s; {lm_times(r, LM_BATCH)}; caches "
+          f"{r['cache_bytes']} bytes; {base} bytes of weights before the prefill; decode-step "
+          f"byte floor {floor:.4f} ms ({step_weights} weight bytes + {cache_io} cache bytes at "
+          f"{PEAK_BYTES_PER_S / 1e12} TB/s){sparse}; card {card}")
+    print(f"lm {arch}: decode against a prefill of {LM_CHECK_LEN} tokens at positions "
+          f"{LM_PROMPT} and {LM_PROMPT + last}: max |diff| {errs[0]:.4g} and {errs[1]:.4g} "
+          f"(bound {tol}; logits up to {scale:.4g}), greedy tokens agree where the margin "
+          f"passes the bound: {agree}; expert choices dropped by the MoE's capacity (of "
+          f"{cfg.top_k} a token and MoE layer): the served prefill {prefill_drops}, decode "
+          f"{decode_drops}, the check's prefill {check_drops}, {checked_drops} of them at the "
+          f"checked positions ({check_s:.1f} s)")
+    check(decode_drops == 0, f"lm {arch}: a decode step dropped {decode_drops} choices")
+    check(checked_drops == 0, f"lm {arch}: the check's prefill dropped {checked_drops} "
+          f"choices at the checked positions, where decode drops none")
+    check(max(errs) <= tol, f"lm {arch}: decode logits {errs} from the prefill's")
+    check(all(agree), f"lm {arch}: a greedy token differs from the prefill's argmax")
+    del served, embed, seq, gen, prompts, at, r, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_encdec_full(dev, rng, card: str) -> None:
+    """(g): the full seamless-m4t-medium: held in f32 on the card against
+    the CPU at ENCDEC_CHECK, then served in bf16 (f32 params with one bf16
+    copy): LM_BATCH x ENCDEC_FRAMES frames encoded, the cross caches built,
+    LM_GEN tokens decoded."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_serve_step
+
+    cfg = get_arch(ENCDEC_ARCH).config
+    rules = ShardingRules.make(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = E.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev)
+    n_params = sum(t.numel() for t in lm_leaves(params))
+
+    # f32, the card against the CPU, from the same weights
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    frames_n, steps = ENCDEC_CHECK
+    small = torch.from_numpy(rng.normal(size=(2, frames_n, cfg.d_model)).astype(np.float32))
+    t0 = time.perf_counter()
+    host = _tree_to(params, torch.device("cpu"))
+    (ge, gl, gt), (ce, cl, ct) = (encdec_greedy(p, small.to(p["head"].device), cfg32, steps)
+                                  for p in (params, host))
+    del host
+    pairs = [(ge, ce)] + list(zip(gl, cl))
+    errs = [float((g.cpu() - c).abs().max()) for g, c in pairs]
+    check(all(torch.allclose(g.cpu(), c, rtol=ENCDEC_F32_TOL, atol=ENCDEC_F32_TOL)
+              for g, c in pairs), f"lm (g) f32: encode and logits {errs} from the CPU run's")
+    check(torch.equal(gt.cpu(), ct), "lm (g) f32: greedy tokens differ from the CPU's")
+    print(f"lm (g): {cfg.name} full width in f32, 2 x {frames_n} frames, {steps} decode steps: "
+          f"encode within {errs[0]:.3g} and logits within {max(errs[1:]):.3g} of the CPU run "
+          f"(rtol=atol={ENCDEC_F32_TOL}), greedy tokens equal ({time.perf_counter() - t0:.1f} s)")
+
+    served = T.cast_weights(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(served))
+    dec_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(served["dec_layers"]))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    frames = torch.from_numpy(rng.normal(size=(LM_BATCH, ENCDEC_FRAMES, cfg.d_model))
+                              .astype(np.float32)).to(dev)
+    serve_step = make_serve_step(lambda p, t, c, n: E.decode_step(p, t, c, n, cfg, rules))
+    marks = {}
+
+    def encode(x):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        enc = E.encode(served, x, cfg, rules)
+        b.record()
+        caches = E.cross_caches(served, enc, cfg, LM_GEN + 1)
+        c = torch.cuda.Event(enable_timing=True)
+        c.record()
+        marks["enc"], marks["cross"] = (a, b), (b, c)
+        check(bool(torch.isfinite(enc).all()), "lm (g): the encoder output is not finite")
+        return None, caches, 0
+
+    r = lm_decode_run(dev, served, frames, serve_step, encode)
+    enc_ms = marks["enc"][0].elapsed_time(marks["enc"][1])
+    cross_ms = marks["cross"][0].elapsed_time(marks["cross"][1])
+    gen = r["tokens"]
+    check(gen.shape == (LM_BATCH, LM_GEN + 1) and int(gen.max()) < cfg.vocab_size
+          and all(bool(torch.isfinite(v).all()) for v in r["kept"].values()),
+          f"lm (g): generated {tuple(gen.shape)} ids up to {int(gen.max())}")
+    # the byte floor of a decode step: the decoder's weights, the head and
+    # final norm, B rows of the embedding, the self caches and the cross
+    # caches read once, the step's self k and v written
+    embed = served["embed"]
+    kv = 2 * LM_BATCH * cfg.n_kv_heads * cfg.hd * 2  # k and v of one position, one layer, bf16
+    head_bytes = served["head"].numel() * served["head"].element_size()
+    step_bytes = (dec_bytes + head_bytes + LM_BATCH * embed.shape[1] * embed.element_size()
+                  + r["cache_bytes"] + kv * cfg.n_layers)
+    floor = step_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"lm (g): {cfg.name} full width ({cfg.enc_layers} + {cfg.n_layers} layers, "
+          f"{n_params} parameters, f32 params with one bf16 copy of {weight_bytes} bytes), "
+          f"batch {LM_BATCH}, {ENCDEC_FRAMES} frames, {LM_GEN} tokens decoded: encode "
+          f"{enc_ms / 1e3:.4f} s, cross caches {cross_ms:.3f} ms (CUDA events); "
+          f"{lm_times(r, LM_BATCH)}; caches {r['cache_bytes']} bytes; {base} bytes of weights "
+          f"before the encode; decode-step byte floor {floor:.4f} ms ({step_bytes} bytes at "
+          f"{PEAK_BYTES_PER_S / 1e12} TB/s); card {card}")
+    del served, frames, r, gen, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_lm_families(dev) -> None:
+    """The rest of LM serving (``models.ssm``, ``models.moe``,
+    ``models.encdec``, ``examples.serve_lm``):
+
+    (d) the reduced mamba2, jamba, grok-1, llama4 and seamless in f32 from
+        one seeded numpy tree: prefill logits (seamless: the encoder
+        output) and LM_PARITY_DECODE greedy decode steps on the card within
+        rtol=atol=1e-4 of the port's own CPU run, the tokens equal;
+    (e), (f) the full mamba2-1.3b and one period of jamba-v0.1-52b (LM_FULL)
+        in bf16: prefill s, decode ms a step and tok/s (CUDA events), peak
+        bytes, a decode step's launches, busy ms and idle share
+        (torch.profiler), its byte floor (jamba: also what a top-2 dispatch
+        would read); the first and last decode steps held within
+        LM_FULL_TOL of a prefill's logits at their positions, no token
+        dropped by the MoE's capacity in any of the runs;
+    (g) the full seamless-m4t-medium: in f32 on the card against the CPU,
+        then encode, cross caches and decode in bf16 with the same numbers;
+    and ``repro_torch.examples.serve_lm`` with its defaults (jamba, reduced).
+
+    None of the eight kernels is launched."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import fused
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    card = card_line(CARD)
+    fused.reset_launches()
+    rng = np.random.default_rng(LM_SEED + 1)
+
+    # (d) reduced-width parity, the card against the CPU
+    for arch in LM_FAMILY_PARITY:
+        cfg = get_arch(arch).reduced
+        if cfg.is_encdec:
+            tree = lm_numpy_tree(cfg, LM_SEED, E.model_schema(cfg))
+            frames = rng.normal(size=(2, LM_PARITY_PROMPT, cfg.d_model)).astype(np.float32)
+            runs = [encdec_greedy(E.params_from_numpy(tree, cfg, d),
+                                  torch.from_numpy(frames).to(d), cfg, LM_PARITY_DECODE)
+                    for d in (dev, torch.device("cpu"))]
+        else:
+            tree = lm_numpy_tree(cfg, LM_SEED)
+            prompts = rng.integers(1, cfg.vocab_size, (2, LM_PARITY_PROMPT)).astype(np.int32)
+            runs = [lm_greedy(T.params_from_numpy(tree, cfg, d), torch.from_numpy(prompts).to(d),
+                              cfg, LM_PARITY_DECODE) for d in (dev, torch.device("cpu"))]
+        (gp, gl, gt), (cp, cl, ct) = runs
+        pairs = [(gp, cp)] + list(zip(gl, cl))
+        errs = [float((g.cpu() - c).abs().max()) for g, c in pairs]
+        check(all(torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-4) for g, c in pairs),
+              f"lm (d) {arch}: {errs} from the CPU run's (rtol=atol=1e-4)")
+        check(torch.equal(gt.cpu(), ct), f"lm (d) {arch}: greedy tokens differ from the CPU's")
+        first = "encoder output" if cfg.is_encdec else "prefill logits"
+        print(f"lm (d): {cfg.name} f32, 2 x {LM_PARITY_PROMPT}, {LM_PARITY_DECODE} decode steps: "
+              f"{first} within {errs[0]:.3g} and decode logits within {max(errs[1:]):.3g} of "
+              f"the CPU run (rtol=atol=1e-4), greedy tokens equal")
+
+    # (e), (f) full width, bf16
+    for arch, overrides in LM_FULL:
+        lm_full(dev, arch, overrides, rng, card)
+
+    # (g) the encoder-decoder
+    lm_encdec_full(dev, rng, card)
+
+    # the example with its defaults
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = serve_lm.main([])
+    lines = buf.getvalue().splitlines()
+    print("lm: python -m repro_torch.examples.serve_lm: " + " | ".join(lines))
+    check(len(lines) == 2 and lines[0] == "jamba-smoke: prefilled 4x48; decoding..."
+          and lines[1].startswith("decoded 23 steps x 4 requests") and
+          out["tokens"].shape == (4, 24), f"lm serve_lm: {lines}")
+    launched = {k: v for k, v in fused.LAUNCHES.items() if v}
+    check(not launched, f"lm: the LM families launched {launched}")
+    print(f"lm families: none of the eight kernels launched; {time.perf_counter() - t_phase:.1f} "
+          f"s in all; card {card}")
 
 
 def lm_profile(fn, top: int = 4):
@@ -3258,6 +3697,7 @@ def main() -> int:
     example_by_path = phase_examples()
     phase_sim()
     phase_lm_serve(dev)
+    phase_lm_families(dev)
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
                **store_by_path, **service_by_path, **mesh_by_path, **train_by_path,

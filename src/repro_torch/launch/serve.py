@@ -1,14 +1,13 @@
-"""Serving driver: prefill + batched greedy decode for a dense --arch.
+"""Serving CLI: prefill + batched greedy decode for any decoder-only --arch.
 
-The port of ``repro.launch.serve``: prefill fills the KV caches, then
-token-by-token decode with batched requests.  The flags are the
+The port of ``repro.launch.serve``: prefill fills the KV and SSM caches,
+then token-by-token decode with batched requests.  The flags are the
 reference's plus ``--device`` (CUDA by default, raising when no card is
 present; ``cpu`` on request).  It prints the reference's two lines, the
 first with the card's name and power limit beside its times (host clock
-around work that ends in a synchronize), and returns the numbers.  The
-dense family serves; an MoE, hybrid or SSM arch raises
-``NotImplementedError`` from ``models.transformer`` and an
-encoder-decoder one here (ROADMAP A7).
+around work that ends in a synchronize), and returns the numbers.  An
+encoder-decoder arch is refused with the reference's message:
+``repro_torch.examples.serve_lm`` serves it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --reduced \
       --batch 4 --prompt-len 64 --gen 32 --device cpu
@@ -50,7 +49,7 @@ def main(argv=None) -> dict:
     entry = get_arch(args.arch)
     cfg = entry.reduced if args.reduced else entry.config
     if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder serving is not ported yet (ROADMAP A7.2)")
+        raise ValueError("use examples/serve_lm.py for enc-dec serving")
     rules = ShardingRules.make(None)
     params = tfm.cast_weights(
         tfm.init_params(torch.Generator().manual_seed(args.seed), cfg, device), cfg)

@@ -16,7 +16,7 @@ reference computes them, and attention as the reference's blockwise online
 softmax (q blocks of 512, kv blocks of 1024, ``-1e30`` fills, every kv block
 visited in order, fully masked ones included), with no library attention
 and no compile.  ``cp_decode_attention`` (context-parallel decode over a
-mesh) is not ported (ROADMAP A7.3).
+mesh) is not ported (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -101,6 +101,22 @@ def shapes_from_schema(schema: Schema, dtype: torch.dtype) -> Dict[str, Any]:
         return {k: walk(v) for k, v in node.items()}
 
     return walk(schema)
+
+
+def tree_from_numpy(tree: Dict[str, Any], schema: Schema, device: torch.device) -> Dict[str, Any]:
+    """The reference's params (a nested dict of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them) as tensors on `device`,
+    walked by `schema` and checked against its shapes."""
+
+    def walk(node, sch, path):
+        if isinstance(sch, ParamDef):
+            arr = np.asarray(node)
+            if arr.shape != tuple(sch.shape):
+                raise ValueError(f"{path}: {arr.shape}, the schema {sch.shape}")
+            return torch.from_numpy(np.array(arr, copy=True)).to(device)
+        return {k: walk(node[k], sch[k], f"{path}/{k}") for k in sch}
+
+    return walk(tree, schema, "")
 
 
 def stack_schema(schema: Schema, n: int) -> Schema:

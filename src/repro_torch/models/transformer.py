@@ -25,12 +25,19 @@ Where the port differs, and why:
   call; the norms' weights stay in the parameter dtype, as the reference
   reads them.
 
-The dense family serves (``attn`` layers with swiglu, geglu or gelu MLPs,
-full, swa, local_global and chunked attention).  A config with a mamba or
-MoE layer raises ``NotImplementedError`` (ROADMAP A7.1) from the schema,
-the cache and both serving entry points, as does context-parallel decode
-over a mesh (A7.3); training (``loss_fn``, ``chunked_xent``, remat) waits
-for A7.4.
+* Mamba positions keep their state ``h`` and conv window in the caches too,
+  written in place by ``decode_step``; ``prefill`` takes the window from the
+  projections ``ssm.mamba_forward`` computed (the reference computes them
+  again: the same numbers).  A config with no attention position has no KV
+  cache, so C11 has nothing to check there and decode runs past any
+  ``max_seq``, as the reference's does.
+
+Every family of the registry serves: attention (full, swa, local_global,
+chunked), mamba and MoE layers.  Context-parallel decode
+(``shard_kv_seq`` on a mesh with a ``data`` axis) raises
+``NotImplementedError`` (ROADMAP A5); on a mesh without one it runs plain
+decode, as the reference does.  Training (``loss_fn``, ``chunked_xent``,
+remat) waits for A4.
 """
 
 from __future__ import annotations
@@ -38,10 +45,10 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.common.util import resolve_device
+from repro_torch.models import moe, ssm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
     ParamDef,
@@ -56,21 +63,8 @@ from repro_torch.models.layers import (
     pspecs_from_schema,
     rmsnorm,
     stack_schema,
+    tree_from_numpy,
 )
-
-
-def _not_ported(what: str, item: str = "A7.1"):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    """Raise for a config with a mamba or MoE layer: only attention layers
-    with dense MLPs are ported."""
-    for spec in cfg.period():
-        if spec.kind != "attn":
-            _not_ported("the mamba layer (models/ssm.py)")
-        if spec.mlp_kind == "moe":
-            _not_ported("the MoE layer (models/moe.py)")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -93,15 +87,19 @@ def attn_schema(cfg: ModelConfig) -> Schema:
 
 def layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
     d = cfg.d_model
-    s: Schema = {"ln1": ParamDef((d,), (None,), init="zeros"), "attn": attn_schema(cfg)}
+    s: Schema = {"ln1": ParamDef((d,), (None,), init="zeros")}
+    if spec.kind == "attn":
+        s["attn"] = attn_schema(cfg)
+    else:
+        s["mamba"] = ssm.mamba_schema(cfg)
     if cfg.d_ff > 0:
         s["ln2"] = ParamDef((d,), (None,), init="zeros")
-        s["mlp"] = mlp_schema(cfg, spec.mlp_kind)
+        s["mlp"] = (moe.moe_schema(cfg) if spec.mlp_kind == "moe"
+                    else mlp_schema(cfg, spec.mlp_kind))
     return s
 
 
 def model_schema(cfg: ModelConfig) -> Schema:
-    _dense_only(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     period = {f"p{i}": layer_schema(cfg, spec) for i, spec in enumerate(cfg.period())}
     s: Schema = {
@@ -128,30 +126,23 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     """The reference's params (a nested dict of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives them) as tensors on `device`,
     checked against the schema's shapes."""
-    device = resolve_device(device)
-
-    def walk(node, schema, path):
-        if isinstance(schema, ParamDef):
-            arr = np.asarray(node)
-            if arr.shape != tuple(schema.shape):
-                raise ValueError(f"{path}: {arr.shape}, the schema {schema.shape}")
-            return torch.from_numpy(np.array(arr, copy=True)).to(device)
-        return {k: walk(node[k], schema[k], f"{path}/{k}") for k in schema}
-
-    return walk(tree, model_schema(cfg), "")
+    return tree_from_numpy(tree, model_schema(cfg), resolve_device(device))
 
 
 def param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
     return pspecs_from_schema(model_schema(cfg), rules)
 
 
-_CAST = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in", "w_out", "head", "embed")
+_CAST = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in", "w_out", "head", "embed",
+         "zx_proj", "bcdt_proj", "conv_x", "conv_bc", "out_proj")
 
 
 def cast_weights(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """`params` with one copy of each weight that the forward casts (the
-    projections, the MLPs, the head and the embedding) in ``cfg.dtype``;
-    the norms' weights are shared as they are."""
+    projections, the MLPs and experts, the mamba projections and convs, the
+    head and the embedding) in ``cfg.dtype``; the norms' weights, the
+    router and the SSM's ``A_log``, ``D`` and ``dt_bias`` are shared as they
+    are, since the reference reads them in their own dtype or in f32."""
     dt = dtype_of(cfg.dtype)
 
     def walk(node, key):
@@ -171,11 +162,17 @@ def _period(tree: Dict[str, Any], j: int) -> Dict[str, Any]:
 # Layer application
 
 
-def _mlp(p, x, spec, cfg, rules) -> torch.Tensor:
-    """The reference's ``_mlp_or_moe``, dense branch."""
+def _mlp_or_moe(p, x, spec, cfg, rules):
+    """The layer's MLP or MoE with its residual, and the MoE's aux loss (an
+    f32 scalar tensor; the float 0.0 for a dense MLP, which launches
+    nothing)."""
     if cfg.d_ff == 0:
-        return x
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), spec.mlp_kind, rules)
+        return x, 0.0
+    xn = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if spec.mlp_kind == "moe":
+        out, aux = moe.moe_apply(p["mlp"], xn, cfg, rules)
+        return x + out, aux
+    return x + mlp_apply(p["mlp"], xn, spec.mlp_kind, rules), 0.0
 
 
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
@@ -228,12 +225,21 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     ``ShapeDtypeStruct`` tree)."""
     np_, hd, k = cfg.n_periods, cfg.hd, cfg.n_kv_heads
     dt = dtype_of(cfg.dtype)
-    _dense_only(cfg)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
     out: Dict[str, Any] = {}
-    for i in range(len(cfg.period())):
-        shape = (np_, batch, max_seq, k, hd)
-        out[f"p{i}"] = {"k": torch.empty(shape, dtype=dt, device="meta"),
-                        "v": torch.empty(shape, dtype=dt, device="meta")}
+    for i, spec in enumerate(cfg.period()):
+        if spec.kind == "attn":
+            shape = (np_, batch, max_seq, k, hd)
+            out[f"p{i}"] = {"k": meta(shape, dt), "v": meta(shape, dt)}
+        else:
+            d_in, h, p, n = ssm.ssm_dims(cfg)
+            out[f"p{i}"] = {
+                "h": meta((np_, batch, h, p, n), torch.float32),
+                "conv": meta((np_, batch, cfg.conv_width - 1, d_in + 2 * n), dt),
+            }
     return out
 
 
@@ -272,12 +278,17 @@ def decode_step(
     shard_kv_seq: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serve step: next-token logits, and `caches` with the token's k
-    and v written in place (C11: raises at ``cache_len >= max_seq``)."""
-    if shard_kv_seq and mesh is not None:
-        _not_ported("context-parallel decode (cp_decode_attention)", "A7.3")
-    _dense_only(cfg)
+    and v (attention) or state and conv window (mamba) written in place
+    (C11: raises at ``cache_len >= max_seq`` where there is a KV cache)."""
+    period = cfg.period()
+    has_attn = any(spec.kind == "attn" for spec in period)
+    if shard_kv_seq and mesh is not None and "data" in mesh.axis_names and has_attn:
+        raise NotImplementedError("context-parallel decode (cp_decode_attention) is not "
+                                  "ported yet (ROADMAP A5)")
     n = int(cache_len)
     for name, c in caches.items():
+        if "k" not in c:
+            continue
         max_seq = c["k"].shape[2]
         if not 0 <= n < max_seq:
             raise ValueError(f"cache_len {n} is outside the cache's {max_seq} positions "
@@ -285,11 +296,16 @@ def decode_step(
     h = _embed_tokens(params, token, cfg, rules)
     for j in range(cfg.n_periods):
         pparams = _period(params["layers"], j)
-        for i, spec in enumerate(cfg.period()):
+        for i, spec in enumerate(period):
             lp = pparams[f"p{i}"]
             lcache = {k: t[j] for k, t in caches[f"p{i}"].items()}
-            h = _attn_decode(lp, h, lcache, n, spec, cfg, rules)
-            h = _mlp(lp, h, spec, cfg, rules)
+            if spec.kind == "attn":
+                h = _attn_decode(lp, h, lcache, n, spec, cfg, rules)
+            else:
+                xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+                dh, _ = ssm.mamba_decode_step(lp["mamba"], xn, cfg, rules, lcache)
+                h = h + dh
+            h, _ = _mlp_or_moe(lp, h, spec, cfg, rules)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     return _logits_head(params, h, cfg, rules), caches
 
@@ -313,14 +329,22 @@ def prefill_hidden(
         pparams = _period(params["layers"], j)
         for i, spec in enumerate(cfg.period()):
             lp = pparams[f"p{i}"]
+            lcache = caches[f"p{i}"]
             xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
-            q, kk, vv = _qkv(lp, xn, positions, cfg, rules)
-            out = blockwise_attention(q, kk, vv, pattern=spec.attn_pattern, window=cfg.window,
-                                      chunk=cfg.chunk_size, causal=True)
-            h = h + _attn_out(lp, out, cfg, rules)
-            caches[f"p{i}"]["k"][j, :, :s] = kk
-            caches[f"p{i}"]["v"][j, :, :s] = vv
-            h = _mlp(lp, h, spec, cfg, rules)
+            if spec.kind == "attn":
+                q, kk, vv = _qkv(lp, xn, positions, cfg, rules)
+                out = blockwise_attention(q, kk, vv, pattern=spec.attn_pattern,
+                                          window=cfg.window, chunk=cfg.chunk_size, causal=True)
+                h = h + _attn_out(lp, out, cfg, rules)
+                lcache["k"][j, :, :s] = kk
+                lcache["v"][j, :, :s] = vv
+            else:
+                dh, h_t, conv = ssm.mamba_forward(lp["mamba"], xn, cfg, rules)
+                h = h + dh
+                lcache["h"][j] = h_t
+                lcache["conv"][j] = conv
+            del xn
+            h, _ = _mlp_or_moe(lp, h, spec, cfg, rules)
     return rmsnorm(h, params["final_ln"], cfg.norm_eps), caches
 
 

@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.distributed.comm", "repro_torch.distributed.sharding",
             "repro_torch.train.compression", "repro_torch.models.config",
             "repro_torch.models.transformer", "repro_torch.launch.serve",
-            "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.mamba2_1_3b"} \
+            "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.mamba2_1_3b",
+            "repro_torch.models.ssm", "repro_torch.models.moe", "repro_torch.models.encdec",
+            "repro_torch.examples.serve_lm"} \
         <= set(modules)
     script = (
         "import importlib, sys\n"

@@ -1,4 +1,6 @@
-"""The port's dense LM serving path against the JAX package's, on the CPU.
+"""The port's LM serving layers, its dense archs and ``launch.serve``
+against the JAX package's, on the CPU (the MoE, SSM and hybrid archs:
+``test_torch_lm_ssm_moe.py``; the encoder-decoder: ``test_torch_lm_encdec.py``).
 
 The port and ``repro.models`` run on the same numpy weights (the
 reference's ``init_params`` carried across by ``params_from_numpy``) and
@@ -21,7 +23,9 @@ the same seeded prompts.  Tolerances, and why:
   the numbers of its cast on every call;
 * a vocab of 500, padded to 512: the padded logits are -1e30 in both;
 * C11: the reference's decode at ``cache_len == max_seq`` overwrites the
-  cache's last slot; the port raises ``ValueError``.
+  cache's last slot; the port raises ``ValueError``;
+* the CLI serves every decoder-only arch and refuses the encoder-decoder
+  with the reference's message.
 """
 
 import dataclasses
@@ -35,34 +39,19 @@ import pytest
 import torch
 
 from repro.configs import registry as JR
-from repro.distributed.sharding import ShardingRules as JRules
 from repro.models import config as JC
 from repro.models import layers as JL
 from repro.models import transformer as JT
-from repro.train import make_serve_step as j_make_serve_step
 from repro_torch.configs import registry as PR
-from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch import serve
 from repro_torch.models import config as PC
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.train import make_serve_step
+from torch_lm_util import B, J_RULES, PROMPT, RULES, TOL, close, run_both, t
 
-TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ATOL = 0.05
-J_RULES = JRules.make(None)
-RULES = ShardingRules.make(None)
 DENSE = ("h2o-danube-1.8b", "gemma-7b", "glm4-9b", "gemma3-12b")
-B, PROMPT, DECODE = 2, 96, 4  # the prompt passes h2o's reduced window (64)
-
-
-def t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a))
-
-
-def close(got: torch.Tensor, want, **tol) -> None:
-    np.testing.assert_allclose(got.detach().float().numpy(),
-                               np.asarray(jnp.asarray(want, jnp.float32)), **(tol or TOL))
+MOE_SSM = ("jamba-v0.1-52b", "mamba2-1.3b", "grok-1-314b", "llama4-maverick-400b-a17b")
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +72,7 @@ def test_arch_configs_equal_the_reference(arch):
         {k: dataclasses.asdict(v) for k, v in JC.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE + ("internvl2-76b",))
+@pytest.mark.parametrize("arch", DENSE + ("internvl2-76b",) + MOE_SSM)
 def test_full_width_schema_equals_the_reference(arch):
     """The parameter tree, shapes and specs at full width (meta tensors)."""
     cfg, jcfg = PR.get_arch(arch).config, JR.get_arch(arch).config
@@ -104,13 +93,23 @@ def test_h2o_danube_full_width_is_1_8b_parameters():
     assert sum(x.numel() for x in jax.tree.leaves(shapes)) == 1_831_201_280
 
 
-@pytest.mark.parametrize("arch,item", [("jamba-v0.1-52b", "A7.1"), ("mamba2-1.3b", "A7.1"),
-                                       ("grok-1-314b", "A7.1"),
-                                       ("llama4-maverick-400b-a17b", "A7.1"),
-                                       ("seamless-m4t-medium", "A7.2")])
-def test_unported_families_raise_naming_the_roadmap(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--gen", "2"])
+@pytest.mark.parametrize("arch", MOE_SSM)
+def test_moe_and_ssm_archs_serve_through_the_cli(arch):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                          "--gen", "3"])
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == 2
+    assert lines[0].startswith(f"{PR.get_arch(arch).reduced.name}: prefill(2x64) ")
+    assert "decode 2 steps" in lines[0] and lines[0].endswith("[cpu]")
+    assert lines[1].startswith("sample token ids: [")
+    assert out["tokens"].shape == (2, 3)
+
+
+def test_encdec_is_refused_naming_serve_lm():
+    with pytest.raises(ValueError, match="use examples/serve_lm.py for enc-dec serving"):
+        serve.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu", "--gen", "2"])
 
 
 # ---------------------------------------------------------------------------
@@ -179,43 +178,6 @@ def test_decode_attention_past_the_window(pattern):
 
 # ---------------------------------------------------------------------------
 # prefill + greedy decode
-
-
-def run_both(jcfg, cfg, *, prompt=PROMPT, decode=DECODE, seed=0):
-    """The reference's and the port's prefill and greedy decode from the
-    same numpy weights and prompts: logits, caches and tokens of each."""
-    tree = jax.tree.map(np.asarray, JT.init_params(jax.random.PRNGKey(seed), jcfg))
-    params = T.params_from_numpy(tree, cfg, "cpu")
-    toks = np.random.default_rng(seed).integers(1, cfg.vocab_size, (B, prompt)).astype(np.int32)
-    max_seq = prompt + decode
-
-    jl, jc = jax.jit(lambda p, x: JT.prefill(p, x, jcfg, J_RULES, max_seq))(
-        jax.tree.map(jnp.asarray, tree), jnp.asarray(toks))
-    jserve = jax.jit(j_make_serve_step(
-        lambda p, x, c, n: JT.decode_step(p, x, c, n, jcfg, J_RULES)))
-    ref = {"prefill": np.asarray(jl, np.float32), "caches": jax.tree.map(np.asarray, jc),
-           "logits": [], "tokens": []}
-    jtok = jnp.argmax(jl[:, -1, :], axis=-1).astype(jnp.int32)[:, None]
-    jp = jax.tree.map(jnp.asarray, tree)
-    for i in range(decode):
-        jtok, lg, jc = jserve(jp, jtok, jc, jnp.int32(prompt + i))
-        ref["logits"].append(np.asarray(lg, np.float32))
-        ref["tokens"].append(np.asarray(jtok))
-    ref["caches_after"] = jax.tree.map(np.asarray, jc)
-
-    pl, pc = T.prefill(params, t(toks), cfg, RULES, max_seq)
-    port = {"prefill": pl, "caches": jax.tree.map(lambda x: x.clone(), pc), "logits": [],
-            "tokens": []}
-    pserve = make_serve_step(lambda p, x, c, n: T.decode_step(p, x, c, n, cfg, RULES))
-    ptok = torch.argmax(pl[:, -1, :], dim=-1).to(torch.int32)[:, None]
-    for i in range(decode):
-        ptok, lg, pc = pserve(params, ptok, pc, prompt + i)
-        port["logits"].append(lg)
-        port["tokens"].append(ptok.numpy())
-    port["caches_after"] = pc
-    port["params"] = params
-    port["prompts"] = toks
-    return ref, port
 
 
 @pytest.fixture(scope="module")
