@@ -120,6 +120,20 @@ just after:
   seamless-m4t-medium in f32 against the CPU, then 4 x 4,096 frames encoded
   and 32 tokens decoded in bf16; ``repro_torch.examples.serve_lm`` with its
   defaults; none of the eight kernels launched;
+* LM training (``phase_lm_train``): every arch's reduced config in f32 on
+  the card against the port's CPU run (loss, every gradient leaf, one
+  update of the full config's optimizer; 1e-4); at full width in bf16 on
+  one ``TokenSynthesizer`` batch: h2o-danube-1.8b (4 x 4,096 in 2
+  microbatches, "dots" remat, 5 AdamW then 3 Adafactor steps; the first
+  step's xent held against the serving forward's), mamba2-1.3b (4 x 4,096,
+  AdamW; every gradient finite at chunk 128), seamless-m4t-medium (4 x
+  4,096 frames and tokens, AdamW) and one period of jamba-v0.1-52b (bf16
+  params, Adafactor; the MoE aux non-zero), each loss falling and each
+  held-out xent at the stream's entropy, every Adafactor update of h2o
+  and jamba's first held against a plain one-pass Adafactor, with step
+  ms, tok/s, the optimizer's ms, peak bytes, a step's launches and idle
+  share and its FLOP bounds; ``launch.train --mode lm`` with its defaults;
+  none of the eight kernels launched;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -309,6 +323,40 @@ LM_FULL = (("mamba2-1.3b", {}), ("jamba-v0.1-52b", {"n_layers": 8, "param_dtype"
 LM_FULL_TOL = {"mamba2-1.3b": 0.125, "jamba-v0.1-52b": 0.0625}
 ENCDEC_ARCH, ENCDEC_FRAMES, ENCDEC_CHECK = "seamless-m4t-medium", 4096, (256, 8)
 ENCDEC_F32_TOL = 1e-4  # f32 on the card against the CPU, as (a) and (d)
+# LM training (phase_lm_train): (h) every arch's reduced config in f32 on the
+# card against the CPU (loss, every gradient leaf and one update of the full
+# config's optimizer within 1e-4); at full width in bf16 on one TokenSynthesizer
+# batch, warmup_cosine(*LM_TRAIN_LR): (i) h2o-danube-1.8b, "dots" remat, 4 x
+# 4,096 in 2 microbatches (a step ~11 s, host-bound: ~1.8e5 launches), 5
+# AdamW steps, then 3 Adafactor steps on the weights they left; (j)
+# mamba2-1.3b, 4 x 4,096 ("dots"), AdamW; (k) seamless-m4t-medium, 4 x 4,096
+# frames and tokens, AdamW; (l) one period of jamba-v0.1-52b (8 of 32 layers,
+# bf16 params: with f32 masters the 13.3B parameters and their gradients would
+# not fit), Adafactor, batch 1; (m) launch.train --mode lm with its defaults
+LM_TRAIN_PARITY_SEQ = 96  # past h2o's window (64), llama4's chunk and 3 SSD chunks
+LM_TRAIN_LR = (1e-3, 2, 100)
+# a run's steps: a warm-up, the profiled step, then 3 timed ones
+LM_TRAIN_H2O = (4, 4096, 2, 5, 3)  # batch, seq, microbatches, AdamW steps, Adafactor steps
+LM_TRAIN_MAMBA = (4, 4096, 5)  # batch, seq, steps
+LM_TRAIN_ENCDEC = (4, 4096, 5)  # batch, frames (= tokens), steps
+# seamless at LM_TRAIN_LR's peak of 1e-3 oscillates: 12.98, 14.78, 12.78,
+# 14.35, 14.24 on an H100 (PERF.md §6); a tenth of it, beside the
+# reference's own peak of 3e-4 (launch.specs.make_optimizer_for)
+LM_TRAIN_ENCDEC_LR = (1e-4, 2, 100)
+LM_TRAIN_JAMBA = (1, 4096, 5)  # batch, seq, steps
+# the held-out xent (the stream's next batch) may sit this far below the
+# stream's unigram entropy: the sampling noise of a mean over 8,192 tokens
+# is ~0.03 nats; a model that sees its labels goes many nats below
+LM_TRAIN_HELDOUT_SLACK = 0.5
+# jamba's leaves witnessed against plain_adafactor: all but the expert
+# stacks (0.94e9 elements: a plain f32 pass over one takes ~26 GB beside the
+# 53 GB of bf16 parameters and gradients), the embedding and the head included
+LM_TRAIN_WITNESS_ELEMS = 1 << 28
+# |the first train step's xent - the xent of prefill_hidden on the same
+# tokens|: the same bf16 forward (remat recomputes, it does not change a
+# value); the bound is 1e-3 of a loss near ln(32,000) = 10.4
+LM_TRAIN_XENT_TOL = 0.01
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
 E2E_STEPS = 40  # train_recsys_e2e's steps on the card
 SIM_SEED = 11
 # the meshed paths (phase_mesh): ranks sharing the card, spawned per world
@@ -3206,15 +3254,521 @@ def phase_lm_families(dev) -> None:
           f"s in all; card {card}")
 
 
+def lm_train_inputs(cfg, batch: int, seq: int, dev, step: int = 0) -> dict:
+    """The LM driver's batch of `step` (``launch.train.lm_batch``: one
+    TokenSynthesizer batch, frames or prefix embeddings drawn by a
+    generator seeded with LM_SEED + step on the CPU), on `dev`."""
+    from repro_torch.data.tokens import TokenSynthesizer
+    from repro_torch.launch.train import lm_batch
+
+    cpu = torch.device("cpu")
+    host = lm_batch(TokenSynthesizer(cfg.vocab_size, seq, seed=LM_SEED), cfg, step, batch, seq,
+                    cpu, torch.Generator(cpu).manual_seed(LM_SEED + step))
+    return {k: v.to(dev) for k, v in host.items()}
+
+
+def token_entropy(vocab: int) -> float:
+    """The unigram entropy (nats) of TokenSynthesizer's stream: token k + 1
+    for k = floor(u^3 (V - 2)), u uniform, so P(k) = ((k + 1) / (V - 2))^(1/3)
+    - (k / (V - 2))^(1/3).  The tokens are drawn independently, so no model's
+    expected xent on a batch it has not seen is below it; one that sees
+    its labels (a causal leak) goes far below."""
+    p = np.diff(np.cbrt(np.arange(vocab - 1, dtype=np.float64) / (vocab - 2)))
+    p = p[p > 0]
+    return float(-(p * np.log(p)).sum())
+
+
+def matmul_params(cfg, model) -> tuple:
+    """(parameters a token multiplies in the decoder (or the whole
+    decoder-only model), in the encoder): every parameter but the
+    embedding table (a gather) and the norms, the MoE's experts at
+    top_k / n_experts (what a token's routing needs)."""
+    enc = dec = 0
+    for name, p in model.named_parameters():
+        if name == "embed" or p.dim() - ("layers" in name) < 2:
+            continue
+        n = p.numel()
+        if ".mlp." in name and p.dim() == 4:  # (periods, E, d, f): an expert stack
+            n = n * cfg.top_k // cfg.n_experts
+        if name.startswith("enc_layers"):
+            enc += n
+        else:
+            dec += n
+    return dec, enc
+
+
+def attn_flops(cfg, batch: int, seq: int, enc_seq: int = 0, visited: bool = True) -> int:
+    """The attention FLOPs of a train step (forward and backward, 3 x the
+    forward's QK^T and PV, 4 * hd a query-key pair and head).  `visited`:
+    the pairs this implementation computes (blockwise_attention visits
+    every block pair, masked ones too: Sq * Skv a layer); else the pairs
+    the function needs (a self-attention's causal pairs within the window;
+    the encoder's and the cross-attention's all)."""
+    per = 3 * 4 * batch * cfg.n_heads * cfg.hd
+    w = cfg.window if cfg.attention == "swa" and cfg.window else seq
+    self_pairs = seq * seq if visited else sum(min(i + 1, w) for i in range(seq))
+    if cfg.is_encdec:
+        return per * (cfg.enc_layers * enc_seq * enc_seq
+                      + cfg.n_layers * (self_pairs + seq * enc_seq))
+    n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.period())
+    return per * n_attn * self_pairs
+
+
+def timed_optimizer(opt, marks: list):
+    """`opt` with CUDA events around each update, appended to `marks`."""
+    from repro_torch.train import Optimizer
+
+    def update(grads, state, params, sq_sum=None):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = opt.update(grads, state, params, sq_sum)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    return Optimizer(opt.init, update)
+
+
+def plain_adafactor(g, st: dict, p, scale, lr, beta, eps: float = 1e-30):
+    """The reference's Adafactor update of one leaf (``upd`` in
+    ``repro.train.optimizer.adafactor``), in one pass over the whole leaf
+    and out of place: (the new parameter, the new state)."""
+    g32 = (g * scale.to(g.dtype)).to(torch.float32)
+    g2 = g32 * g32 + eps
+    if "vr" in st:
+        vr = beta * st["vr"] + (1 - beta) * g2.mean(dim=-1)
+        vc = beta * st["vc"] + (1 - beta) * g2.mean(dim=-2)
+        del g2
+        denom = (vr[..., None] * vc[..., None, :]
+                 / torch.clamp_min(vr.mean(dim=-1)[..., None, None], eps))
+        pre, new = g32 * torch.rsqrt(denom + eps), {"vr": vr, "vc": vc}
+        del denom
+    else:
+        v = beta * st["v"] + (1 - beta) * g2
+        pre, new = g32 * torch.rsqrt(v + eps), {"v": v}
+    del g32
+    pre = pre / torch.clamp_min(torch.sqrt(torch.mean(pre * pre) + 1e-12), 1.0)
+    return p + (-lr * pre).to(p.dtype), new
+
+
+def witnessed_adafactor(opt, lr_fn, steps: set, max_elems: int, out: list):
+    """`opt` (the port's Adafactor) with its updates at the indices `steps`
+    held against ``plain_adafactor`` on the same gradients, state and
+    parameters, every leaf of at most `max_elems` elements; the chunked
+    passes run where a leaf passes CHUNK_ELEMS.  Both take the clip's scale
+    from the port's norm, which is held apart against a plain one.  Each
+    witnessed update appends its errors to `out`."""
+    from repro_torch.train import Optimizer
+
+    calls = [0]
+
+    def update(grads, state, params, sq_sum=None):
+        i = calls[0]
+        calls[0] += 1
+        if i not in steps:
+            return opt.update(grads, state, params, sq_sum)
+        names = [n for n, p in params.items() if p.numel() <= max_elems]
+        with torch.no_grad():
+            gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                                for g in grads.values()))
+            snap = {n: (grads[n].clone(), {k: v.clone() for k, v in state["f"][n].items()},
+                        params[n].clone()) for n in names}
+        count = int(state["count"]) + 1
+        state, metrics = opt.update(grads, state, params, sq_sum)
+        with torch.no_grad():
+            port_gn = metrics["grad_norm"]
+            scale = torch.clamp(1.0 / torch.clamp_min(port_gn, 1e-9), max=1.0)
+            lr = float(lr_fn(count))
+            beta = 1.0 - torch.tensor(float(count)) ** -0.8
+            r = {"update": count, "leaves": len(names), "of": len(params),
+                 "norm": float(abs(port_gn - gn) / gn), "param": 0.0, "state": 0.0,
+                 "largest": 0.0, "ok": True}
+            for n in names:
+                g, st, p0 = snap.pop(n)
+                want, want_st = plain_adafactor(g, st, p0, scale, lr, beta.to(g.device))
+                got, want, p0 = params[n].float(), want.float(), p0.float()
+                if params[n].dtype == torch.bfloat16:  # the update's rounding and the sum's
+                    bound = (want.abs() + (want - p0).abs()).mul_(2 ** -7).clamp_min_(1e-30)
+                else:
+                    bound = want.abs().mul_(2 ** -22).add_(1e-4 * lr)
+                err = (got - want).abs_()
+                r["param"] = max(r["param"], float(err.div_(bound).max()))
+                r["largest"] = max(r["largest"], float((got - p0).abs_().max()) / lr)
+                for k, v in want_st.items():
+                    have = state["f"][n][k]
+                    r["state"] = max(r["state"], float(((have - v).abs()
+                                                        / v.abs().clamp_min(1e-30)).max()))
+                    r["ok"] &= torch.allclose(have, v, rtol=1e-5, atol=1e-30)
+                del g, st, p0, want, want_st, got, bound, err
+            r["ok"] &= r["norm"] <= 1e-5 and r["param"] <= 1
+        out.append(r)
+        return state, metrics
+
+    return Optimizer(opt.init, update)
+
+
+def witness_line(tag: str, w: list) -> str:
+    return (f"lm train ({tag}) witness: {len(w)} updates ({[r['update'] for r in w]}), each of "
+            f"{w[0]['leaves']} of {w[0]['of']} leaves against plain_adafactor (the reference's "
+            f"arithmetic in one pass over the leaf) on the same gradients, state and parameters: "
+            f"parameters within {max(r['param'] for r in w):.3g} of their bound (1 passes: "
+            f"2^-22 |p| + 1e-4 lr in f32; in bf16 2^-7 (|p| + |the update|), a rounding of "
+            f"each), state within "
+            f"{max(r['state'] for r in w):.3g} relative (bound 1e-5), the clip's norm within "
+            f"{max(r['norm'] for r in w):.3g} of a plain one (bound 1e-5); the largest "
+            f"element update by update {[round(r['largest'], 1) for r in w]} lr (the clip "
+            f"bounds the RMS alone)")
+
+
+def lm_train_run(model, loss_fn, opt, batch: dict, steps: int, microbatches: int = 1,
+                 profile_at: int | None = 1, heldout: dict | None = None,
+                 wrap=None) -> dict:
+    """`steps` train steps of `model` on one batch: each step's metrics,
+    the first step's time and the later ones' (CUDA events; the step
+    `profile_at`, if any, runs under ``torch.profiler`` instead and gives
+    the busy ms, launches and top kernels, and its own time by events),
+    each update's ms, the peak device bytes with the state built, and the
+    xent on `heldout` after the last step.  `wrap`, if given, wraps the
+    timed optimizer (a witness, outside the update's time).  The state is
+    freed before it returns; the model keeps the trained parameters."""
+    from repro_torch.train import init_state, make_train_step
+
+    opt_marks, marks, metrics = [], [], []
+    topt = timed_optimizer(opt, opt_marks)
+    topt = wrap(topt) if wrap else topt
+    step = make_train_step(loss_fn, topt, microbatches=microbatches)
+    state = init_state(model, topt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = None
+    for i in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        box = {}
+
+        def run():
+            a.record()
+            box["out"] = step(state, batch)
+            b.record()
+
+        if i == profile_at:
+            prof = (*lm_profile(run), (a, b))
+        else:
+            run()
+            marks.append((a, b))
+        state, m = box.pop("out")
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in marks]
+    out = {"metrics": metrics, "losses": [m["loss"] for m in metrics],
+           "first_ms": times[0], "step_ms": times[1:],
+           "opt_ms": [a.elapsed_time(b) for a, b in opt_marks],
+           "peak": torch.cuda.max_memory_allocated(),
+           "prof": prof and (*prof[:3], prof[3][0].elapsed_time(prof[3][1])),
+           "grads_finite": all(bool(torch.isfinite(p.grad).all())
+                               for p in model.parameters() if p.grad is not None)}
+    model.zero_grad(set_to_none=True)
+    del state, step, topt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if heldout is not None:
+        with torch.no_grad():
+            out["heldout"] = float(loss_fn(model, heldout)[1]["xent"])
+    return out
+
+
+def lm_train_report(tag: str, cfg, r: dict, tokens: int, mm: int, attn: tuple, card: str,
+                    extra: str = "") -> None:
+    """Prints a full-width run: losses, step ms (the median of the steps
+    after the warm-up and the profiled one, where there are 3), tok/s, the
+    optimizer's ms, peak bytes, the profiled step's busy ms, launches and
+    idle share of its own time, the held-out xent beside the stream's
+    entropy, and two FLOP bounds: the function's (6 N T and the attention
+    pairs it needs, bf16 at the tensor cores' peak) and this
+    implementation's (every kv block visited, the attention in f32 at the
+    f32 peak).  `attn` is (needed, visited) attention FLOPs."""
+    fn_bound = (6 * mm * tokens + attn[0]) / BF16_OPS_PER_S * 1e3
+    impl_bound = (6 * mm * tokens / BF16_OPS_PER_S + attn[1] / PEAK_OPS_PER_S) * 1e3
+    if len(r["step_ms"]) >= 3:
+        med = statistics.median(r["step_ms"])
+        timing = (f"step {med:.1f} ms (median of {len(r['step_ms'])} after a warm-up step of "
+                  f"{r['first_ms']:.1f}, CUDA events), {tokens / (med / 1e3):.1f} tok/s")
+        bounds = (f"FLOP bound of the function {fn_bound:.1f} ms ({6 * mm * tokens} FLOPs, 6 x "
+                  f"{mm} parameters x {tokens} tokens, + {attn[0]} attention FLOPs over the "
+                  f"pairs it needs, bf16 at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+                  f"{fn_bound / med:.1%} of the step; of this implementation {impl_bound:.1f} "
+                  f"ms (+ {attn[1]} attention FLOPs over every kv block, f32 at "
+                  f"{PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s), {impl_bound / med:.1%}")
+    else:
+        timing = (f"steps not timed apart ({[round(t, 1) for t in [r['first_ms']] + r['step_ms']]}"
+                  f" ms, CUDA events)")
+        bounds = f"FLOP bound of the function {fn_bound:.1f} ms"
+    prof = "not profiled"
+    if r["prof"]:
+        busy, launches, top, wall = r["prof"]
+        prof = (f"the profiled step {busy:.1f} ms busy in {launches} launches "
+                f"(torch.profiler, device only) of its own {wall:.1f} ms (CUDA events): idle "
+                f"{1 - busy / wall:.1%}; top {top}")
+    held = ""
+    if "heldout" in r:
+        held = (f"; held-out xent {r['heldout']:.4f} on the stream's next batch (unigram entropy "
+                f"{token_entropy(cfg.vocab_size):.4f})")
+    print(f"lm train ({tag}) {cfg.name}: losses {[round(x, 5) for x in r['losses']]}; {timing}; "
+          f"optimizer {statistics.median(r['opt_ms']):.3f} ms (median of {len(r['opt_ms'])} "
+          f"updates); peak {r['peak']} bytes; {prof}{held}; {bounds}{extra}; card {card}")
+
+
+def lm_train_losses_fall(tag: str, runs: list, cfg) -> None:
+    """The losses of `runs` in a row fall (the last below the first), every
+    gradient is finite, and the held-out xent is not below the stream's
+    entropy less LM_TRAIN_HELDOUT_SLACK: what fell is this batch learnt."""
+    losses = [x for r in runs for x in r["losses"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"lm train ({tag}): losses {losses} do not fall")
+    check(all(r["grads_finite"] and all(np.isfinite(m["grad_norm"]) for m in r["metrics"])
+              for r in runs), f"lm train ({tag}): a gradient is not finite")
+    floor = token_entropy(cfg.vocab_size) - LM_TRAIN_HELDOUT_SLACK
+    check(runs[-1]["heldout"] >= floor,
+          f"lm train ({tag}): held-out xent {runs[-1]['heldout']} below {floor}")
+
+
+def lm_train_parity(dev) -> None:
+    """(h): every arch's reduced config in f32, the card against the CPU."""
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.specs import _model_module
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.train import make_optimizer, warmup_cosine
+
+    rules = ShardingRules.make(None)
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = get_arch(arch).reduced
+        name = get_arch(arch).config.optimizer
+        mod = _model_module(cfg)
+        tree = lm_numpy_tree(cfg, LM_SEED, mod.model_schema(cfg))
+        host = lm_train_inputs(cfg, 2, LM_TRAIN_PARITY_SEQ, torch.device("cpu"))
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            model = ParamTree(mod.params_from_numpy(tree, cfg, d))
+            loss, m = mod.loss_fn(model.tree(), {k: v.to(d) for k, v in host.items()}, cfg,
+                                  rules)
+            loss.backward()
+            params = {n: p.detach() for n, p in model.named_parameters()}
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            opt = make_optimizer(name, warmup_cosine(*LM_TRAIN_LR))
+            with torch.no_grad():
+                opt.update({n: g.clone() for n, g in grads.items()}, opt.init(params), params)
+            runs.append((float(loss.detach()), m, grads, params))
+        (gl, gm, gg, gp), (cl, cm, cg, cp) = runs
+        errs = {"loss": abs(gl - cl),
+                "grads": max(float((gg[n].cpu() - cg[n]).abs().max()) for n in cg),
+                "params": max(float((gp[n].cpu() - cp[n]).abs().max()) for n in cp)}
+        check(np.isclose(gl, cl, rtol=1e-4, atol=1e-4)
+              and all(torch.allclose(gg[n].cpu(), cg[n], rtol=1e-4, atol=1e-4) for n in cg)
+              and all(torch.allclose(gp[n].cpu(), cp[n], rtol=1e-4, atol=1e-4) for n in cp)
+              and all(bool(torch.isfinite(g).all()) for g in cg.values()),
+              f"lm train (h) {arch}: {errs} from the CPU run's (rtol=atol=1e-4)")
+        aux = f", moe_aux {float(gm['moe_aux']):.5g}" if cfg.n_experts else ""
+        print(f"lm train (h): {cfg.name} f32, 2 x {LM_TRAIN_PARITY_SEQ}, loss {gl:.6f}{aux}; "
+              f"loss within {errs['loss']:.3g}, {len(cg)} gradient leaves within "
+              f"{errs['grads']:.3g}, one {name} update within {errs['params']:.3g} of the "
+              f"CPU run (rtol=atol=1e-4; {time.perf_counter() - t0:.1f} s)")
+
+
+def lm_train_h2o(dev, card: str) -> None:
+    """(i): h2o-danube-1.8b at full width, AdamW and then Adafactor on the
+    trained weights, every Adafactor update witnessed; the first step's
+    xent held against the serving forward's (``prefill_hidden``) on the
+    same tokens."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.train import make_optimizer, warmup_cosine
+
+    cfg = get_arch("h2o-danube-1.8b").config
+    b, s, k, n_adam, n_ada = LM_TRAIN_H2O
+    rules = ShardingRules.make(None)
+    model = ParamTree(T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = lm_train_inputs(cfg, b, s, dev)
+    heldout = lm_train_inputs(cfg, b // k, s, dev, step=1)
+    # the serving forward's xent on the last microbatch, the one whose
+    # metrics the train step reports
+    last = {key: v[b - b // k:] for key, v in batch.items()}
+    with torch.no_grad():
+        h, caches = T.prefill_hidden(model.tree(), last["tokens"], cfg, rules, s)
+        del caches
+        want = float(T.chunked_xent(model.tree(), h, last["labels"], last["mask"], cfg, rules))
+        del h
+    loss_fn = lambda m, x: T.loss_fn(m.tree(), x, cfg, rules)  # noqa: E731
+    mm, _ = matmul_params(cfg, model)
+    attn = (attn_flops(cfg, b, s, visited=False), attn_flops(cfg, b, s))
+    lr_fn = warmup_cosine(*LM_TRAIN_LR)
+    witness: list = []
+    runs = []
+    for name, steps in (("adamw", n_adam), ("adafactor", n_ada)):
+        wrap = None
+        if name == "adafactor":  # on the weights the AdamW steps left
+            wrap = lambda o: witnessed_adafactor(o, lr_fn, set(range(steps)),  # noqa: E731
+                                                 n_params, witness)
+        runs.append(lm_train_run(model, loss_fn, make_optimizer(name, lr_fn), batch, steps,
+                                 microbatches=k, profile_at=1 if name == "adamw" else None,
+                                 heldout=heldout, wrap=wrap))
+        lm_train_report(f"i, {name}", cfg, runs[-1], b * s, mm, attn, card,
+                        f"; {n_params} parameters (f32), bf16 compute, remat {cfg.remat}, "
+                        f"{b} x {s} in {k} microbatches")
+    print(witness_line("i, adafactor", witness))
+    check(all(r["ok"] for r in witness), f"lm train (i): Adafactor against plain: {witness}")
+    lm_train_losses_fall("i", runs, cfg)
+    got = runs[0]["metrics"][0]["xent"]
+    print(f"lm train (i): the first step's xent {got:.6f} against prefill_hidden + "
+          f"_logits_head on the same {b // k} x {s} tokens {want:.6f}: |diff| "
+          f"{abs(got - want):.3g} (bound {LM_TRAIN_XENT_TOL})")
+    check(abs(got - want) <= LM_TRAIN_XENT_TOL,
+          f"lm train (i): the first step's xent {got} against the serving forward's {want}")
+    del model, batch, heldout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_train_full(dev, card: str, tag: str, arch: str, overrides: dict, shape: tuple,
+                  opt_name: str, lr: tuple = LM_TRAIN_LR) -> dict:
+    """(j), (k), (l): an arch at full width (with `overrides`) for
+    `shape` = (batch, seq, steps) under `opt_name` over warmup_cosine(*lr)
+    (Adafactor's first update witnessed on every leaf up to
+    LM_TRAIN_WITNESS_ELEMS); returns the run."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.specs import _model_module
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.train import make_optimizer, warmup_cosine
+
+    cfg = dataclasses.replace(get_arch(arch).config, **overrides)
+    b, s, steps = shape
+    mod = _model_module(cfg)
+    rules = ShardingRules.make(None)
+    t0 = time.perf_counter()
+    model = ParamTree(mod.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = lm_train_inputs(cfg, b, s, dev)
+    heldout = lm_train_inputs(cfg, b, s, dev, step=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    loss_fn = lambda m, x: mod.loss_fn(m.tree(), x, cfg, rules)  # noqa: E731
+    lr_fn = warmup_cosine(*lr)
+    witness, wrap = [], None
+    if opt_name == "adafactor":  # the warm-up step's update, outside the timed steps
+        wrap = lambda o: witnessed_adafactor(o, lr_fn, {0}, LM_TRAIN_WITNESS_ELEMS,  # noqa: E731
+                                             witness)
+    r = lm_train_run(model, loss_fn, make_optimizer(opt_name, lr_fn), batch, steps,
+                     heldout=heldout, wrap=wrap)
+    dec, enc = matmul_params(cfg, model)
+    mm = dec + enc  # enc-dec: as many frames as tokens
+    enc_s = s if cfg.is_encdec else 0
+    aux = (f", moe_aux {[round(m['moe_aux'], 5) for m in r['metrics']]}" if cfg.n_experts
+           else "")
+    lm_train_report(f"{tag}, {opt_name}", cfg, r, b * s, mm,
+                    (attn_flops(cfg, b, s, enc_s, visited=False), attn_flops(cfg, b, s, enc_s)),
+                    card,
+                    f"; {n_params} parameters ({cfg.param_dtype}), {cfg.n_layers} layers"
+                    f"{f' + {cfg.enc_layers} encoder layers' if cfg.is_encdec else ''}, "
+                    f"bf16 compute, remat {cfg.remat}, batch {b} x {s}, warmup_cosine{lr}{aux}; "
+                    f"built in "
+                    f"{init_s:.1f} s")
+    if witness:
+        print(witness_line(f"{tag}, {opt_name}", witness))
+        check(all(w["ok"] for w in witness), f"lm train ({tag}): Adafactor against plain: "
+              f"{witness}")
+    lm_train_losses_fall(tag, [r], cfg)
+    r["cfg"] = cfg
+    del model, batch, heldout
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_lm_train(dev) -> None:
+    """LM training (``models.transformer.loss_fn``, ``models.encdec.loss_fn``,
+    ``train.optimizer.adafactor``, ``launch.train --mode lm``):
+
+    (h) every arch's reduced config in f32 from one seeded numpy tree: the
+        loss, every gradient leaf and the parameters after one update of
+        the full config's optimizer on the card within rtol=atol=1e-4 of
+        the port's CPU run;
+    (i) h2o-danube-1.8b at full width, f32 params, bf16 compute, "dots"
+        remat, 4 x 4,096 in 2 microbatches: 5 AdamW steps, then 3
+        Adafactor steps on the weights they left, on one batch, the eight
+        losses falling (the Adafactor leg's own need not: it starts on a
+        batch already learnt); every Adafactor update within bounds of
+        ``plain_adafactor`` on every leaf; the first step's xent within
+        LM_TRAIN_XENT_TOL of ``prefill_hidden`` + ``_logits_head``'s on the
+        same tokens;
+    (j) mamba2-1.3b at full width (chunk 128, C14), 4 x 4,096, AdamW: every
+        gradient finite, the losses falling;
+    (k) seamless-m4t-medium at full width, 4 x 4,096 frames and tokens,
+        AdamW over warmup_cosine(*LM_TRAIN_ENCDEC_LR), the losses falling;
+    (l) one period of jamba-v0.1-52b in bf16 params, Adafactor: the MoE aux
+        non-zero, the gradients finite, the losses falling, the first
+        update within bounds of ``plain_adafactor`` on every leaf but the
+        expert stacks;
+    (m) ``python -m repro_torch.launch.train --mode lm`` with its defaults
+        (mamba2-1.3b, batch 8, seq 256, 50 steps), in process.
+
+    Each full-width run prints its step ms (CUDA events; the median of 3
+    after a warm-up step and a profiled one), tok/s, the optimizer's ms,
+    peak bytes, the profiled step's launches and idle share of its own time,
+    its FLOP bounds, and the xent on the stream's next batch, held not
+    below the stream's unigram entropy less LM_TRAIN_HELDOUT_SLACK (the
+    tokens are drawn independently: the losses fall by learning one batch).
+    None of the eight kernels is launched."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.kernels import fused
+    from repro_torch.launch import train as t_train
+
+    t_phase = time.perf_counter()
+    card = card_line(CARD)
+    fused.reset_launches()
+    lm_train_parity(dev)
+    lm_train_h2o(dev, card)
+    lm_train_full(dev, card, "j", "mamba2-1.3b", {}, LM_TRAIN_MAMBA, "adamw")
+    lm_train_full(dev, card, "k", "seamless-m4t-medium", {}, LM_TRAIN_ENCDEC, "adamw",
+                  LM_TRAIN_ENCDEC_LR)
+    r = lm_train_full(dev, card, "l", "jamba-v0.1-52b",
+                      {"n_layers": 8, "param_dtype": "bfloat16"}, LM_TRAIN_JAMBA, "adafactor")
+    check(all(m["moe_aux"] > 0 for m in r["metrics"]), "lm train (l): the MoE aux is zero")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        out = t_train.main(["--mode", "lm"])
+    lines = buf.getvalue().splitlines()
+    print(f"lm train (m): python -m repro_torch.launch.train --mode lm: " + " | ".join(lines)
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    check(len(lines) == 2 and lines[0].startswith("lm mamba2-1.3b: 50 steps in ")
+          and len(out["losses"]) == 50 and all(np.isfinite(out["losses"]))
+          and out["last_loss"] < out["first_loss"], f"lm train (m): {lines}")
+    launched = {k: v for k, v in fused.LAUNCHES.items() if v}
+    check(not launched, f"lm train: LM training launched {launched}")
+    print(f"lm train: none of the eight kernels launched; {time.perf_counter() - t_phase:.1f} "
+          f"s in all; card {card}")
+
+
 def lm_profile(fn, top: int = 4):
     """Device busy ms of one call of `fn` (the sum of its kernels' and
     copies' device time, from ``torch.profiler``), their count, and its
-    `top` kernels by device time as (name, ms, count)."""
+    `top` kernels by device time as (name, ms, count).  The profiler
+    traces the device alone: a train step's ~10^5 launches took minutes to
+    trace with their host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
@@ -3698,6 +4252,7 @@ def main() -> int:
     phase_sim()
     phase_lm_serve(dev)
     phase_lm_families(dev)
+    phase_lm_train(dev)
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
                **store_by_path, **service_by_path, **mesh_by_path, **train_by_path,

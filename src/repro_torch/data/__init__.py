@@ -1,1 +1,2 @@
-"""Columnar data, synthetic RM sources and the partitioned store."""
+"""Columnar data, synthetic RM sources, the partitioned store and synthetic
+token streams."""

@@ -1,5 +1,5 @@
-"""Encoder-decoder transformer (the seamless-m4t backbone), the serving
-half: the port of ``repro.models.encdec``.
+"""Encoder-decoder transformer (the seamless-m4t backbone): the port of
+``repro.models.encdec``, training (``loss_fn``) and serving.
 
 The audio/text modality frontend is a stub: the encoder consumes
 precomputed frame embeddings (B, S_enc, d).  The decoder is causal
@@ -16,7 +16,11 @@ Where the port differs, and why:
 * ``cross_caches`` builds the cross K/V one decoder layer at a time (the
   reference's ``examples/serve_lm.py`` maps over the stacked layers).
 
-Training (``loss_fn``) waits for ROADMAP A4, ``cache_pspecs`` for A5.
+Under ``cfg.remat`` other than ``"none"`` the reference checkpoints every
+encoder and decoder layer with a plain ``jax.checkpoint`` (nothing saved),
+whatever the policy's name; so does the port, with
+``transformer.remat_call("full", ...)`` when a gradient is taken.
+``cache_pspecs`` waits for ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -42,7 +46,14 @@ from repro_torch.models.layers import (
     stack_schema,
     tree_from_numpy,
 )
-from repro_torch.models.transformer import _period, attn_schema, dtype_of
+from repro_torch.models.transformer import (
+    _period,
+    _periods,
+    attn_schema,
+    chunked_xent,
+    dtype_of,
+    remat_call,
+)
 
 
 def _xattn_schema(cfg: ModelConfig) -> Schema:
@@ -128,17 +139,48 @@ def _mha(p, xq, xkv, positions_q, positions_kv, cfg, rules, causal) -> torch.Ten
     return out.reshape(b, sq, h * hd) @ wo
 
 
+def _remat(cfg: ModelConfig) -> str:
+    return "none" if cfg.remat == "none" else "full"
+
+
+def _enc_layer(lp, h, pos, cfg: ModelConfig, rules) -> torch.Tensor:
+    xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+    h = h + _mha(lp["attn"], xn, xn, pos, pos, cfg, rules, False)
+    return h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_kind, rules)
+
+
+def _dec_layer(lp, h, enc_out, pos, cfg: ModelConfig, rules) -> torch.Tensor:
+    xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+    h = h + _mha(lp["attn"], xn, xn, pos, pos, cfg, rules, True)
+    h = h + _mha(lp["xattn"], rmsnorm(h, lp["lnx"], cfg.norm_eps), enc_out, None, None, cfg,
+                 rules, False)
+    return h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_kind, rules)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
     """frames (B, S_enc, d) stub embeddings -> encoder hidden states."""
     b, s, _ = frames.shape
     pos = torch.arange(s, device=frames.device).expand(b, s)
     h = rules.constrain(frames.to(dtype_of(cfg.dtype)), "batch", "seq", "embed")
-    for j in range(cfg.enc_layers):
-        lp = _period(params["enc_layers"], j)
-        xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        h = h + _mha(lp["attn"], xn, xn, pos, pos, cfg, rules, False)
-        h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_kind, rules)
+    for lp in _periods(params["enc_layers"], cfg.enc_layers):
+        h = remat_call(_remat(cfg), _enc_layer, lp, h, pos, cfg, rules)
     return rmsnorm(h, params["enc_ln"], cfg.norm_eps)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            rules) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: frames (B, S_enc, d), tokens (B, S_dec), labels, mask.
+    Returns (xent, {loss, xent})."""
+    enc_out = encode(params, batch["frames"], cfg, rules)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    for lp in _periods(params["dec_layers"], cfg.n_layers):
+        h = remat_call(_remat(cfg), _dec_layer, lp, h, enc_out, pos, cfg, rules)
+    h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
+    xent = chunked_xent(params, h, batch["labels"], batch["mask"], cfg, rules)
+    return xent, {"loss": xent.detach(), "xent": xent.detach()}
 
 
 # -- serving -----------------------------------------------------------------

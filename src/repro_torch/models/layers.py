@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +118,29 @@ def tree_from_numpy(tree: Dict[str, Any], schema: Schema, device: torch.device) 
         return {k: walk(node[k], sch[k], f"{path}/{k}") for k in sch}
 
     return walk(tree, schema, "")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as an ``nn.Module``: every leaf an
+    ``nn.Parameter`` registered under its tree path (``layers.p0.attn.wq``
+    for the reference's ``layers/p0/attn/wq``), so ``named_parameters``,
+    ``zero_grad``, the train steps and the checkpoint's nesting of dotted
+    names see the reference's tree.  ``tree()`` gives the nested dict of
+    these same Parameters, which the models' functions take."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, v if isinstance(v, nn.Parameter)
+                                        else nn.Parameter(v))
+
+    def tree(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = dict(self.named_parameters(recurse=False))
+        out.update({k: m.tree() for k, m in self.named_children()})
+        return out
 
 
 def stack_schema(schema: Schema, n: int) -> Schema:

@@ -10,12 +10,20 @@ in the input's dtype (bf16 at full width), the decay sums, the state and
 
 Where the port differs, and why:
 
-* the (B, nc, H, Q, Q) decay and attention blocks are built in place, one
-  f32 buffer and its cast, with the head axis ahead of the chunk's rows, so
-  the product with X is a batched matmul with no permuted copy (jamba at
-  batch 4 and 8,192 tokens: 4.3 GB a buffer).  ``masked_fill_`` after the
-  ``exp`` keeps the reference's ``where``: ``exp`` of the positive ``rel``
-  above the diagonal is ``inf``, and a multiply by a mask would give NaN;
+* the (B, nc, H, Q, Q) decay and attention blocks are built with the head
+  axis ahead of the chunk's rows, so the product with X is a batched
+  matmul with no permuted copy.  Where no gradient is taken (serving) they
+  are built in place, one f32 buffer and its cast (jamba at batch 4 and
+  8,192 tokens: 4.3 GB a buffer); under autograd, out of place, since the
+  ``exp`` saves its output for the backward;
+* the decay is ``exp`` of ``rel`` filled with ``-inf`` above the diagonal
+  (ROADMAP C14).  The reference takes ``where(causal, exp(rel), 0)``:
+  above the diagonal ``rel`` is a positive sum of ``|a| dt``, whose ``exp``
+  overflows to ``inf`` past ~88 (the configs' own chunks of 128 and 256
+  reach it), and the VJP of that ``where`` is ``0 * inf = NaN`` in every
+  gradient below the final norm.  ``exp(-inf) = 0``, so the forward is
+  bitwise the reference's form and the gradient stays finite: at chunk 128
+  it equals the reference's at chunk 32, where nothing overflows;
 * ``mamba_forward`` also returns the last ``W - 1`` pre-conv channels,
   sliced from the projections it computed (the reference's ``prefill``
   computes the same products a second time for them: the same numbers);
@@ -105,16 +113,18 @@ def _ssd_chunked(
     ldec_h = ldec.transpose(2, 3)  # (B, nc, H, Q)
 
     # intra-chunk (dual form): Y_in[t] = sum_{u<=t} C_t.B_u e^{l_t-l_u} dt_u x_u,
-    # built as (B, nc, H, Q_t, Q_u) in one f32 buffer
+    # built as (B, nc, H, Q_t, Q_u): exp of rel, -inf above the diagonal (C14)
     cb = torch.einsum("bcqn,bcun->bcqu", cc, bc)  # (B, nc, Q, Q)
-    att = ldec_h[..., :, None] - ldec_h[..., None, :]  # rel
-    att.exp_()
-    causal = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
-    att.masked_fill_(~causal, 0.0)  # the reference's where: exp(rel) is inf above
-    att.mul_(cb[:, :, None])
-    att.mul_(dtc.transpose(2, 3)[:, :, :, None, :])
+    rel = ldec_h[..., :, None] - ldec_h[..., None, :]
+    above = ~torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    dt_u = dtc.transpose(2, 3)[:, :, :, None, :]
+    if torch.is_grad_enabled():
+        att = torch.exp(rel.masked_fill(above, float("-inf"))) * cb[:, :, None] * dt_u
+    else:  # one f32 buffer, in place
+        att = rel.masked_fill_(above, float("-inf")).exp_()
+        att.mul_(cb[:, :, None]).mul_(dt_u)
     att_c = att.to(cdt)
-    del att, cb
+    del att, rel, cb
     y_in = torch.matmul(att_c, xc.permute(0, 1, 3, 2, 4))  # (B, nc, H, Q, P)
     del att_c
     y = y_in.transpose(2, 3).to(torch.float32)  # (B, nc, Q, H, P)

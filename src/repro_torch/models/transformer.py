@@ -1,5 +1,6 @@
-"""Periodic decoder LM, the serving half: the port of
-``repro.models.transformer``'s schemas, ``prefill`` and ``decode_step``.
+"""Periodic decoder LM: the port of ``repro.models.transformer``'s schemas,
+its training forward (``loss_fn``, ``_backbone``, ``chunked_xent``),
+``prefill`` and ``decode_step``.
 
 The layer stack is `n_periods` repetitions of a heterogeneous *period*
 (``cfg.period()``).  Parameters keep the reference's tree: layers stacked
@@ -32,20 +33,43 @@ Where the port differs, and why:
   cache, so C11 has nothing to check there and decode runs past any
   ``max_seq``, as the reference's does.
 
-Every family of the registry serves: attention (full, swa, local_global,
-chunked), mamba and MoE layers.  Context-parallel decode
+Training runs on autograd.  The train path reads the parameters (f32
+masters, or bf16 where ``cfg.param_dtype`` says so) through
+``load_weight``, a cast that autograd differentiates; ``cast_weights``'
+copies, which hold no gradient, are for serving only.  A model to train is
+a ``layers.ParamTree`` over ``params_from_numpy``'s or ``init_params``'
+tree, and ``loss_fn(model.tree(), batch, cfg, rules)`` keeps the
+reference's signature.  The reference's remat (``jax.checkpoint`` of the
+scan body) is ``torch.utils.checkpoint`` of each period
+(``use_reentrant=False``): ``"full"`` saves nothing, ``"dots"`` saves the
+outputs of ``aten.mm`` (the projections: 3-d activations times 2-d
+weights), as ``checkpoint_dots_with_no_batch_dims`` saves the dots without
+batch dimensions; attention's and the SSD's einsums and the experts'
+products are batched (``bmm``) and recomputed.  Remat moves memory, not
+numbers.  Where the reference scans over the stacked periods, ``_backbone``
+unbinds each stacked leaf once, so autograd stacks the periods' gradients
+in one pass (indexing period by period would add a full-size zero
+gradient a period).
+
+Every family of the registry serves and trains: attention (full, swa,
+local_global, chunked), mamba and MoE layers.  Context-parallel decode
 (``shard_kv_seq`` on a mesh with a ``data`` axis) raises
 ``NotImplementedError`` (ROADMAP A5); on a mesh without one it runs plain
-decode, as the reference does.  Training (``loss_fn``, ``chunked_xent``,
-remat) waits for A4.
+decode, as the reference does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.common.util import resolve_device
 from repro_torch.models import moe, ssm
@@ -214,6 +238,145 @@ def _attn_out(p, out: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
     b, s = out.shape[:2]
     wo = load_weight(p["attn"]["wo"], rules, "heads", None, dtype=out.dtype)
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ wo
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+
+
+def _periods(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The `n` periods of a tree stacked over periods, as `n` trees of views:
+    one ``unbind`` a leaf, whose backward stacks the periods' gradients."""
+    parts: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        subs = _periods(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for j in range(n):
+            parts[j][k] = subs[j]
+    return parts
+
+
+_DOTS = frozenset({torch.ops.aten.mm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(mode: str, fn, *args):
+    """``fn(*args)``, under the checkpoint of remat `mode` when a gradient is
+    being taken: ``"none"`` saves everything, ``"dots"`` the outputs of
+    ``aten.mm`` alone, ``"full"`` nothing (the module says why)."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if mode == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _attn_apply_train(p, x: torch.Tensor, positions: torch.Tensor, spec: LayerSpec,
+                      cfg: ModelConfig, rules,
+                      segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(p, xn, positions, cfg, rules)
+    out = blockwise_attention(q, k, v, pattern=spec.attn_pattern, window=cfg.window,
+                              chunk=cfg.chunk_size, causal=True,
+                              segment_ids_q=segment_ids, segment_ids_kv=segment_ids)
+    return x + rules.constrain(_attn_out(p, out, cfg, rules), "batch", "seq", "embed")
+
+
+def _period_apply_train(pparams, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                        rules, segment_ids: Optional[torch.Tensor]):
+    """One period of the training forward: (x, the period's MoE aux, summed
+    layer by layer as the reference does; the float 0.0 without MoE)."""
+    aux_total = 0.0
+    for i, spec in enumerate(cfg.period()):
+        lp = pparams[f"p{i}"]
+        if spec.kind == "attn":
+            x = _attn_apply_train(lp, x, positions, spec, cfg, rules, segment_ids)
+        else:
+            xn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            x = x + ssm.mamba_apply(lp["mamba"], xn, cfg, rules)
+        x, aux = _mlp_or_moe(lp, x, spec, cfg, rules)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _backbone(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, rules,
+              segment_ids: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runs the layer stack, each period under ``cfg.remat``.  Returns
+    (hidden after the final norm, moe_aux as an f32 scalar tensor)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pparams in _periods(params["layers"], cfg.n_periods):
+        x, aux_p = remat_call(cfg.remat, _period_apply_train, pparams, x, positions, cfg,
+                              rules, segment_ids)
+        if not isinstance(aux_p, float):  # a dense period adds 0.0
+            aux = aux + aux_p
+    return rmsnorm(x, params["final_ln"], cfg.norm_eps), aux
+
+
+def _xent_block(params, hx: torch.Tensor, lx: torch.Tensor, mx: torch.Tensor,
+                cfg: ModelConfig, rules) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = _logits_head(params, hx, cfg, rules).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx[..., None].to(torch.int64))[..., 0]
+    mx = mx.to(torch.float32)
+    return ((lse - gold) * mx).sum(), mx.sum()
+
+
+def chunked_xent(
+    params,
+    h: torch.Tensor,  # (B, S, d) final hidden
+    labels: torch.Tensor,  # (B, S)
+    mask: torch.Tensor,  # (B, S) float/bool
+    cfg: ModelConfig,
+    rules,
+    block: int = 1024,
+) -> torch.Tensor:
+    """Cross-entropy without materializing (B, S, V): a loop over sequence
+    blocks (the largest divisor of S up to `block`), f32 logits, each block
+    checkpointed (nothing saved) unless ``cfg.remat`` is ``"none"``."""
+    b, s, d = h.shape
+    block = min(block, s)
+    while s % block:  # largest divisor of s not exceeding the target block
+        block -= 1
+    mode = "none" if cfg.remat == "none" else "full"
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // block):
+        sl = slice(i * block, (i + 1) * block)
+        nll, m = remat_call(mode, _xent_block, params, h[:, sl], labels[:, sl], mask[:, sl],
+                            cfg, rules)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(
+    params,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    rules,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss. batch: tokens (B,S), labels (B,S), mask (B,S);
+    optional segment_ids (B,S) and prefix_embeds (B,P,d) for VLM/audio
+    frontends (stubbed): the prefix runs ahead of the tokens as segment 0,
+    and its positions are sliced off before the loss."""
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, cfg, rules)
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    seg = batch.get("segment_ids")
+    if seg is not None and prefix is not None:
+        seg = torch.cat([torch.zeros((b, prefix.shape[1]), dtype=seg.dtype, device=seg.device),
+                         seg], dim=1)
+    h, aux = _backbone(params, x, positions, cfg, rules, seg)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:, :]
+    xent = chunked_xent(params, h, batch["labels"], batch["mask"], cfg, rules)
+    loss = xent + 0.01 * aux
+    return loss, {"loss": loss.detach(), "xent": xent.detach(), "moe_aux": aux.detach()}
 
 
 # ---------------------------------------------------------------------------

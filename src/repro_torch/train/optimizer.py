@@ -1,14 +1,22 @@
-"""AdamW with global-norm clipping, and the warmup-cosine schedule.
+"""AdamW and Adafactor with global-norm clipping, and the warmup-cosine
+schedule.
 
-The port of the AdamW half of ``repro.train.optimizer`` (Adafactor waits
-for the LM side), with the reference's arithmetic, in f32.  Where the
-reference returns new state, this optimizer updates the parameters, the
-moments and the gradients in place: at RM2 width the tables alone take
-16.1 GB, and parameters, gradients and the two moments already fill 60 GiB
-of the card's 80 GB, so the update takes no full-size temporary.  The clip
-scale is folded into the Adam pass, and every tensor is updated in chunks of
-at most ``CHUNK_ELEMS`` elements along its first axis, so the temporaries of
-a step are two chunks.
+The port of ``repro.train.optimizer``, with the reference's arithmetic, in
+f32.  Where the reference returns new state, these optimizers update the
+parameters, their state and the gradients in place: at RM2 width the
+tables alone take 16.1 GB, and parameters, gradients and the two moments
+already fill 60 GiB of the card's 80 GB, so the update takes no full-size
+temporary.  The clip scale is folded into the update pass, and every
+tensor is updated in chunks of at most ``CHUNK_ELEMS`` elements along its
+leading axes, so the temporaries of a step are a few chunks.
+
+Adafactor (factored second moment, no first moment; the default of the
+300B+ MoE configs) clips each leaf's update to RMS <= 1 over the whole
+leaf, so a leaf larger than a chunk takes three passes: the second-moment
+state (its column means summed over row chunks), the update's sum of
+squares, then the update itself, recomputed chunk by chunk.  A jamba
+expert stack is 1 x 16 x 4096 x 14336: one f32 temporary of it would be
+3.76 GB.
 
 Under a mesh each rank updates its blocks of the parameters; the clip's
 global norm sums the squares of sharded leaves over their mesh axes and
@@ -60,16 +68,21 @@ def _chunks(t: torch.Tensor):
 
 
 def leaf_squares(grads: Tensors) -> Tensors:
-    """Each gradient's sum of squares, an f32 scalar tensor by name: on the
-    card one read of each gradient; on the CPU, where norms accumulate in
-    order (1e-4 off at 5M elements), torch.sum's pairwise sums, in chunks
-    that keep the squares' temporaries small."""
-    gs = {k: g.to(torch.float32) for k, g in grads.items()}
-    if next(iter(gs.values())).device.type == "cuda":
-        norms = torch._foreach_norm(list(gs.values()))
-        return {k: torch.square(n) for k, n in zip(gs, norms)}
-    return {k: torch.sum(torch.stack([torch.sum(torch.square(c)) for c in _chunks(g)]))
-            for k, g in gs.items()}
+    """Each gradient's sum of squares, an f32 scalar tensor by name: for an
+    f32 gradient on the card, one read (``_foreach_norm``); otherwise (on
+    the CPU, where norms accumulate in order and are 1e-4 off at 5M
+    elements, or a bf16 gradient, whose f32 copy would double it)
+    torch.sum's pairwise sums of the f32 squares, chunk by chunk."""
+    out: Tensors = {}
+    f32 = [k for k, g in grads.items() if g.device.type == "cuda" and g.dtype == torch.float32]
+    if f32:
+        norms = torch._foreach_norm([grads[k] for k in f32])
+        out.update({k: torch.square(n) for k, n in zip(f32, norms)})
+    for k, g in grads.items():
+        if k not in out:
+            out[k] = torch.sum(torch.stack([torch.sum(torch.square(c.to(torch.float32)))
+                                            for c in _chunks(g)]))
+    return {k: out[k] for k in grads}
 
 
 def _local_sq_sum(squares: Tensors) -> torch.Tensor:
@@ -153,3 +166,117 @@ def adamw(
             return state, {"grad_norm": gnorm, "lr": lr}
 
     return Optimizer(init, update)
+
+
+def _adafactor_chunks(shape, factored: bool):
+    """Index tuples into the (M, R, C) view of a factored leaf (M the
+    product of the leading axes) or the (rows, rest) view of another, each
+    chunk at most ``CHUNK_ELEMS`` elements: runs of whole matrices (rows)
+    where one fits, else runs of a matrix's rows (elements)."""
+    if not factored:
+        rows = shape[0] if len(shape) else 1
+        rest = math.prod(shape[1:]) if len(shape) > 1 else 1
+        k = max(1, CHUNK_ELEMS // rest)
+        return [(slice(r, min(r + k, rows)),) for r in range(0, rows, k)]
+    m, r, c = math.prod(shape[:-2]), shape[-2], shape[-1]
+    if r * c <= CHUNK_ELEMS:
+        k = max(1, CHUNK_ELEMS // (r * c))
+        return [(slice(i, min(i + k, m)), slice(None)) for i in range(0, m, k)]
+    k = max(1, CHUNK_ELEMS // c)
+    return [(slice(i, i + 1), slice(j, min(j + k, r))) for i in range(m) for j in range(0, r, k)]
+
+
+def _adafactor_leaf(g, st, p, scale, beta, neg_lr, eps: float, factored: bool) -> None:
+    """One leaf's Adafactor update, in place: the clip into `g`, the
+    second-moment state into `st`, the update into `p` (see the module)."""
+    shape = tuple(p.shape)
+    if factored:
+        m, r, c = math.prod(shape[:-2]), shape[-2], shape[-1]
+        g3, p3 = g.view(m, r, c), p.view(m, r, c)
+        vr, vc = st["vr"].view(m, r), st["vc"].view(m, c)
+    else:
+        rows = shape[0] if shape else 1
+        g3, p3, v = g.view(rows, -1), p.view(rows, -1), st["v"].view(rows, -1)
+    chunks = _adafactor_chunks(shape, factored)
+    gscale = scale.to(g.dtype)  # the reference clips in the gradient's dtype
+    colsum = torch.zeros((m, c), dtype=torch.float32, device=g.device) if factored else None
+
+    # pass 1: the clip and the second-moment state
+    for idx in chunks:
+        gc = g3[idx].mul_(gscale).to(torch.float32)
+        g2 = gc.square().add_(eps)
+        if factored:
+            vr[idx].mul_(beta).add_(g2.mean(dim=-1).mul_(1 - beta))
+            colsum[idx[0]] += g2.sum(dim=-2)
+        else:
+            v[idx].mul_(beta).add_(g2.mul_(1 - beta))
+    if factored:
+        vc.mul_(beta).add_(colsum.div_(r).mul_(1 - beta))
+        rmean = torch.clamp_min(vr.mean(dim=-1), eps)
+
+    def pre_of(idx):
+        gc = g3[idx].to(torch.float32)
+        if factored:
+            denom = vr[idx][..., None] * vc[idx[0]][:, None, :] / rmean[idx[0]][:, None, None]
+            return gc * torch.rsqrt(denom + eps)
+        return gc * torch.rsqrt(v[idx] + eps)
+
+    # pass 2: the update's RMS over the whole leaf (one chunk keeps its update)
+    sq, kept = 0, None
+    for idx in chunks:
+        pre = pre_of(idx)
+        sq = sq + torch.sum(pre * pre)
+        kept = pre if len(chunks) == 1 else None
+    clip = torch.clamp_min(torch.sqrt(sq / max(p.numel(), 1) + 1e-12), 1.0)
+    # pass 3: p += (-lr * pre / max(1, rms)) in the parameter's dtype
+    for idx in chunks:
+        pre = kept if kept is not None else pre_of(idx)
+        p3[idx].add_(pre.div_(clip).mul_(neg_lr).to(p.dtype))
+
+
+def adafactor(
+    lr_fn, decay: float = 0.8, eps: float = 1e-30, clip_norm: float = 1.0,
+    min_dim_size_to_factor: int = 128,
+) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern), beta1=0.  The
+    state of a leaf is ``{"vr", "vc"}`` (means over its last and its
+    second-to-last axis) where both of its last two axes reach
+    `min_dim_size_to_factor`, else ``{"v"}`` of its shape."""
+
+    def factored(p) -> bool:
+        return (p.dim() >= 2 and p.shape[-1] >= min_dim_size_to_factor
+                and p.shape[-2] >= min_dim_size_to_factor)
+
+    def init(params: Tensors) -> Dict[str, Any]:
+        def st(p):
+            zeros = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)  # noqa: E731
+            if factored(p):
+                return {"vr": zeros(p.shape[:-1]), "vc": zeros(p.shape[:-2] + p.shape[-1:])}
+            return {"v": zeros(p.shape)}
+
+        device = next(iter(params.values())).device
+        return {"f": {k: st(p) for k, p in params.items()},
+                "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+    @torch.no_grad()
+    def update(grads: Tensors, state: Dict[str, Any], params: Tensors,
+               sq_sum: SqSum | None = None):
+        with torch.profiler.record_function("adafactor"):
+            scale, gnorm = _clip_scale(grads, clip_norm, sq_sum)
+            count = state["count"] + 1
+            lr = lr_fn(count).to(scale.device)
+            beta = 1.0 - count.to(torch.float32) ** -decay
+            for name, p in params.items():
+                _adafactor_leaf(grads[name], state["f"][name], p, scale, beta, -lr, eps,
+                                factored(p))
+            return dict(state, count=count), {"grad_norm": gnorm, "lr": lr}
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, lr_fn, **kw) -> Optimizer:
+    if name == "adamw":
+        return adamw(lr_fn, **kw)
+    if name == "adafactor":
+        return adafactor(lr_fn, **kw)
+    raise ValueError(name)

@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.transformer", "repro_torch.launch.serve",
             "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.mamba2_1_3b",
             "repro_torch.models.ssm", "repro_torch.models.moe", "repro_torch.models.encdec",
-            "repro_torch.examples.serve_lm"} \
+            "repro_torch.examples.serve_lm", "repro_torch.data.tokens",
+            "repro_torch.launch.specs"} \
         <= set(modules)
     script = (
         "import importlib, sys\n"

@@ -8,7 +8,8 @@ port driver's checkpoint restores in the reference, its parameters within
 2 lr per step of the reference driver's own checkpoint (that file's bound;
 Adam moves a parameter whose gradient is rounding noise by up to lr), and
 the two restored models' losses on pid 0's batch within LOSS_RTOL.
-Without ``--device`` the driver asks for CUDA and raises with no card."""
+Without ``--device`` the driver asks for CUDA and raises with no card;
+``--mode`` takes recsys and lm only."""
 
 import argparse
 
@@ -108,5 +109,7 @@ def test_driver_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_lm_mode_is_not_offered():
+    """A mode other than recsys and lm exits (``--mode lm`` is held to the
+    reference's ``train_lm`` in ``tests/test_torch_lm_train_opt.py``)."""
     with pytest.raises(SystemExit):
-        t_train.main(["--mode", "lm", "--device", "cpu"])
+        t_train.main(["--mode", "serve", "--device", "cpu"])
