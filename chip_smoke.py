@@ -132,8 +132,21 @@ just after:
   held-out xent at the stream's entropy, every Adafactor update of h2o
   and jamba's first held against a plain one-pass Adafactor, with step
   ms, tok/s, the optimizer's ms, peak bytes, a step's launches and idle
-  share and its FLOP bounds; ``launch.train --mode lm`` with its defaults;
+  share, its FLOP bounds and its model-FLOP share (``launch.roofline``),
+  h2o's ``useful_ratio`` (model FLOPs over ``FlopCounterMode``'s count of
+  one forward and backward); ``launch.train --mode lm`` with its defaults;
   none of the eight kernels launched;
+* the meshed LM (``phase_lm_mesh``), ranks sharing the card over
+  gloo-staged, each witness run in this process and freed before the
+  spawn: (n) context-parallel decode of the full h2o-danube-1.8b at
+  long_500k's shape (batch 1, 524,288 positions, 16.1 GB of K/V a rank) on
+  2 ranks against one device over the whole cache, the writes across the
+  slices' border on the owning rank, the collective bytes a step; (o) one
+  period of jamba-v0.1-52b under llama4's expert rule on (data=2, model=1),
+  dispatching by all-to-all, against the dense dispatch (logits, drops,
+  all-to-all bytes); (p) one expert-parallel train step of the reduced
+  llama4 in f32 against the CPU's one-device step; none of the eight
+  kernels launched;
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -357,6 +370,22 @@ LM_TRAIN_WITNESS_ELEMS = 1 << 28
 # value); the bound is 1e-3 of a loss near ln(32,000) = 10.4
 LM_TRAIN_XENT_TOL = 0.01
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
+# the meshed LM (phase_lm_mesh), ranks sharing the card over gloo-staged:
+# (n) context-parallel decode of the full h2o-danube-1.8b at long_500k's
+# shape on (data=2): LM_CP_LEN cache positions (16.1 GB of bf16 K/V a rank),
+# filled with seeded values but the last LM_GEN, one draw a LM_CP_BLOCK
+# positions of a layer, so each rank fills its own slice; 2 steps across the
+# slices' border, then LM_GEN at the end of the cache
+LM_CP_LEN, LM_CP_BLOCK = 524_288, 65_536
+# (o) expert-parallel serving: one period of jamba-v0.1-52b (as (f)) under
+# llama4's expert rule on (data=2, model=1), LM_BATCH rows (2 a rank),
+# LM_PROMPT and LM_GEN generated, held within (f)'s LM_FULL_TOL
+LM_EP_RULE = {"experts": "data", "ff": "model"}
+LM_EP_OVERRIDES = {"n_layers": 8, "param_dtype": "bfloat16"}
+# (p) expert-parallel training: one meshed step of the reduced llama4 in
+# f32, batch x seq, against the CPU's one-device step over 2 microbatches
+# (the ranks' rows: the same function) within rtol=atol=LM_EP_TRAIN_TOL
+LM_EP_TRAIN, LM_EP_TRAIN_TOL = (4, 128), 1e-5
 E2E_STEPS = 40  # train_recsys_e2e's steps on the card
 SIM_SEED = 11
 # the meshed paths (phase_mesh): ranks sharing the card, spawned per world
@@ -3486,12 +3515,19 @@ def lm_train_report(tag: str, cfg, r: dict, tokens: int, mm: int, attn: tuple, c
     pairs it needs, bf16 at the tensor cores' peak) and this
     implementation's (every kv block visited, the attention in f32 at the
     f32 peak).  `attn` is (needed, visited) attention FLOPs."""
+    from repro_torch.launch import roofline
+    from repro_torch.models.config import ShapeConfig
+
     fn_bound = (6 * mm * tokens + attn[0]) / BF16_OPS_PER_S * 1e3
     impl_bound = (6 * mm * tokens / BF16_OPS_PER_S + attn[1] / PEAK_OPS_PER_S) * 1e3
     if len(r["step_ms"]) >= 3:
         med = statistics.median(r["step_ms"])
+        mf = roofline.model_flops(cfg, ShapeConfig(tag, tokens, 1, "train"))
         timing = (f"step {med:.1f} ms (median of {len(r['step_ms'])} after a warm-up step of "
-                  f"{r['first_ms']:.1f}, CUDA events), {tokens / (med / 1e3):.1f} tok/s")
+                  f"{r['first_ms']:.1f}, CUDA events), {tokens / (med / 1e3):.1f} tok/s, "
+                  f"model-FLOP share {mf / (med / 1e3 * roofline.PEAK_FLOPS):.2%} "
+                  f"(roofline.model_flops {mf:.6g}, 6 x active parameters x tokens, over the "
+                  f"step x {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s)")
         bounds = (f"FLOP bound of the function {fn_bound:.1f} ms ({6 * mm * tokens} FLOPs, 6 x "
                   f"{mm} parameters x {tokens} tokens, + {attn[0]} attention FLOPs over the "
                   f"pairs it needs, bf16 at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), "
@@ -3620,6 +3656,7 @@ def lm_train_h2o(dev, card: str) -> None:
                         f"{b} x {s} in {k} microbatches")
     print(witness_line("i, adafactor", witness))
     check(all(r["ok"] for r in witness), f"lm train (i): Adafactor against plain: {witness}")
+    lm_train_useful(cfg, model, loss_fn, batch, k)
     lm_train_losses_fall("i", runs, cfg)
     got = runs[0]["metrics"][0]["xent"]
     print(f"lm train (i): the first step's xent {got:.6f} against prefill_hidden + "
@@ -3630,6 +3667,30 @@ def lm_train_h2o(dev, card: str) -> None:
     del model, batch, heldout
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def lm_train_useful(cfg, model, loss_fn, batch: dict, k: int) -> None:
+    """(q) for (i): the model FLOPs of a step over ``FlopCounterMode``'s
+    count of its forward and backward (remat's recompute included): one
+    microbatch counted, times the `k` of the same shape; outside the timed
+    steps, the gradients dropped."""
+    from repro_torch.launch import roofline
+    from repro_torch.models.config import ShapeConfig
+
+    b, s = batch["tokens"].shape
+    part = {key: v[:b // k] for key, v in batch.items()}
+    t0 = time.perf_counter()
+    _, counted = roofline.count_flops(lambda: loss_fn(model, part)[0].backward())
+    counted *= k
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mf = roofline.model_flops(cfg, ShapeConfig("i", s, b, "train"))
+    print(f"lm train (i): useful_ratio {mf / counted:.4f}: roofline.model_flops {mf:.6g} over "
+          f"FlopCounterMode's {counted} FLOPs of a step's forward and backward ({k} x one "
+          f"microbatch's count), remat's recompute included ({time.perf_counter() - t0:.1f} s, "
+          f"outside the timed steps)")
+    check(counted > 0, f"lm train (i): FlopCounterMode counted {counted} FLOPs")
 
 
 def lm_train_full(dev, card: str, tag: str, arch: str, overrides: dict, shape: tuple,
@@ -3756,6 +3817,517 @@ def phase_lm_train(dev) -> None:
     check(not launched, f"lm train: LM training launched {launched}")
     print(f"lm train: none of the eight kernels launched; {time.perf_counter() - t_phase:.1f} "
           f"s in all; card {card}")
+
+
+# ---------------------------------------------------------------------------
+# the meshed LM (phase_lm_mesh): rank programs are module-level, as
+# phase_mesh's, and take numpy
+
+
+def cp_fill(t: torch.Tensor, layer: int, kv: int, first: int, fill: int) -> None:
+    """Seeded bf16 values into `t` (B, S_slice, K, hd), the slice of one
+    layer's k (kv 0) or v (kv 1) that starts at global position `first`:
+    one draw a LM_CP_BLOCK block of positions, seeded by (layer, kv,
+    block), so any rank fills its own slice with the whole cache's values;
+    zeros from global position `fill` on."""
+    g = torch.Generator(device=t.device)
+    for off in range(0, t.shape[1], LM_CP_BLOCK):
+        blk = (first + off) // LM_CP_BLOCK
+        g.manual_seed(((LM_SEED * 64 + layer) * 2 + kv) * 64 + blk)
+        part = t[:, off:off + LM_CP_BLOCK]
+        part.normal_(generator=g)
+        part[:, max(fill - first - off, 0):] = 0
+
+
+def cp_model(dev):
+    """The full h2o-danube-1.8b served in bf16, from LM_SEED."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(LM_ARCH).config
+    params = T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev)
+    served = T.cast_weights(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, served
+
+
+def cp_caches(cfg, dev, first: int, length: int) -> dict:
+    """The decode caches of positions [first, first + length), filled."""
+    from repro_torch.models import transformer as T
+
+    caches = T.init_cache(cfg, 1, length, dev)
+    for j in range(cfg.n_periods):
+        for kv, name in enumerate(("k", "v")):
+            cp_fill(caches["p0"][name][j], j, kv, first, LM_CP_LEN - LM_GEN)
+    return caches
+
+
+def cp_positions(s_local: int) -> list:
+    """The global positions whose layer-0 k (n) reads back after the
+    border steps: the two written (rank 0's last slot, rank 1's first) and
+    the two a write on the wrong rank would hit (rank 0's first slot, rank
+    1's last)."""
+    return [0, s_local - 1, s_local, LM_CP_LEN - 1]
+
+
+def cp_decode_run(served, caches, cfg, rules, tokens, lens, mesh=None) -> dict:
+    """Decode steps teacher-forced with `tokens` (B, 1) at cache lengths
+    `lens`: each step's last logits (f32 numpy), ms (CUDA events around
+    the call, synchronized), and on a mesh its collective bytes, calls and
+    host ms in the collectives."""
+    from repro_torch.models import transformer as T
+
+    out = {"logits": [], "ms": [], "bytes": [], "calls": [], "coll_ms": []}
+    for tok, n in zip(tokens, lens):
+        if mesh is not None:
+            mesh.counter.reset()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, caches = T.decode_step(served, tok, caches, n, cfg, rules, mesh=mesh,
+                                       shard_kv_seq=mesh is not None)
+        b.record()
+        b.synchronize()
+        out["ms"].append(a.elapsed_time(b))
+        out["logits"].append(logits[:, -1].float().cpu().numpy())
+        if mesh is not None:
+            out["bytes"].append(sum(mesh.counter.bytes.values()))
+            out["calls"].append(sum(mesh.counter.calls.values()))
+            out["coll_ms"].append(sum(mesh.counter.seconds.values()) * 1e3)
+    return out
+
+
+def cp_mesh_rank(mesh, tokens, lens, cross: int) -> dict:
+    """(n) on one rank: its slice of the filled cache, the decode steps of
+    `lens` with the witness's `tokens` context-parallel, the layer-0 k it
+    holds at the probed positions after the first `cross` steps, C11."""
+    from repro_torch.kernels import fused
+    from repro_torch.launch.specs import shape_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import SHAPES
+
+    dev = mesh.device
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, served = cp_model(dev)
+    rules = shape_rules(cfg, SHAPES["long_500k"], mesh)
+    n = mesh.shape["data"]
+    s_local = LM_CP_LEN // n
+    first = mesh.coords["data"] * s_local
+    t0 = time.perf_counter()
+    caches = cp_caches(cfg, dev, first, s_local)
+    torch.cuda.synchronize(dev)
+    fill_s = time.perf_counter() - t0
+    toks = [torch.from_numpy(t).to(dev) for t in tokens]
+    r = cp_decode_run(served, caches, cfg, rules, toks[:cross], lens[:cross], mesh)
+    k0 = caches["p0"]["k"][0]
+    probes = {p: k0[:, p - first].float().cpu().numpy()
+              for p in cp_positions(s_local) if first <= p < first + s_local}
+    rest = cp_decode_run(served, caches, cfg, rules, toks[cross:], lens[cross:], mesh)
+    for key in r:
+        r[key] += rest[key]
+    try:
+        T.decode_step(served, toks[-1], caches, n * s_local, cfg, rules, mesh=mesh,
+                      shard_kv_seq=True)
+        c11 = None
+    except ValueError as e:
+        c11 = str(e)
+    return dict(r, probes=probes, c11=c11, fill_s=fill_s, s_local=s_local,
+                peak=torch.cuda.max_memory_allocated(dev), launches=dict(fused.LAUNCHES))
+
+
+def lm_cp(dev, card: str) -> list:
+    """(n): the one-device witness over the whole cache, then the (data=2)
+    world; returns the ranks' kernel launch counts."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import choose_transport, rank_devices, run_spmd
+
+    n_ranks = 2
+    s_local = LM_CP_LEN // n_ranks
+    rng = np.random.default_rng(LM_SEED + 13)
+    cfg, served = cp_model(dev)
+    rules = ShardingRules.make(None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    caches = cp_caches(cfg, dev, 0, LM_CP_LEN)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(caches))
+    # greedy from a seeded token: 2 steps across the slices' border, then
+    # LM_GEN steps at the end of the cache
+    runs = []
+    for lens in ([s_local - 1, s_local], list(range(LM_CP_LEN - LM_GEN, LM_CP_LEN))):
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 1)).astype(np.int32)).to(dev)
+        toks, r = [], {"logits": [], "ms": []}
+        for n in lens:
+            toks.append(tok)
+            step = cp_decode_run(served, caches, cfg, rules, [tok], [n])
+            for key in r:
+                r[key] += step[key]
+            tok = torch.from_numpy(step["logits"][0].argmax(-1).astype(np.int32)[:, None]).to(dev)
+        runs.append((toks, lens, r))
+        if len(runs) == 1:
+            k0 = caches["p0"]["k"][0]
+            probes = {p: k0[:, p].float().cpu().numpy() for p in cp_positions(s_local)}
+    peak = torch.cuda.max_memory_allocated()
+    # the last step again under the profiler (it rewrites its own position
+    # with the same values)
+    prof = lm_profile(lambda: cp_decode_run(served, caches, cfg, rules, toks[-1:], lens[-1:]))
+    del caches, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = [t.cpu().numpy() for toks, _, _ in runs for t in toks]
+    lens = [n for _, ls, _ in runs for n in ls]
+    want = [x for _, _, r in runs for x in r["logits"]]
+    w_ms = [x for _, _, r in runs for x in r["ms"]]
+    cross = len(runs[0][1])
+    free = torch.cuda.mem_get_info()[0]
+    t1 = time.perf_counter()
+    ranks = run_spmd(cp_mesh_rank, (n_ranks,), ("data",), device=dev,
+                     args=(tokens, lens, cross), timeout=900)
+    wall = time.perf_counter() - t1
+    transport = choose_transport(rank_devices(n_ranks, dev))
+    n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.period())
+    g = cfg.n_heads // cfg.n_kv_heads
+    want_bytes = n_attn * 4 * (2 * cfg.n_kv_heads * g + cfg.n_kv_heads * g * cfg.hd)
+    errs = [float(max(np.abs(r["logits"][i] - want[i]).max() for r in ranks))
+            for i in range(len(lens))]
+    # step i's greedy token is step i + 1's input within a run
+    fed = [i for i in range(len(lens) - 1) if i + 1 != cross]
+    agree = {i: all(int(r["logits"][i].argmax()) == int(tokens[i + 1][0, 0]) for r in ranks)
+             for i in fed}
+    margin = {i: float(np.diff(np.sort(want[i][0])[-2:])[0]) for i in fed}
+    clear = [agree[i] for i in fed if margin[i] > LM_BF16_TOL]
+    agree = list(agree.values())
+    same = all(np.array_equal(ranks[0]["logits"][i], r["logits"][i]) for r in ranks
+               for i in range(len(lens)))
+    probes_ok = all(np.array_equal(r["probes"][p], probes[p]) for r in ranks for p in r["probes"])
+    owned = sorted(p for r in ranks for p in r["probes"])
+    print(f"lm mesh (n) {cfg.name}: context-parallel decode at long_500k's shape, {n_ranks} ranks "
+          f"on {dev} ({transport}), batch 1, {LM_CP_LEN} positions ({cache_bytes} bytes of bf16 "
+          f"K/V; {ranks[0]['s_local']} a rank), filled to {LM_CP_LEN - LM_GEN} in "
+          f"{fill_s:.2f} s (one device) and {[round(r['fill_s'], 2) for r in ranks]} s (ranks); "
+          f"steps at cache_len {lens[:cross]} (across the border) and {lens[cross]}..{lens[-1]}; "
+          f"step ms, median: ranks {[round(statistics.median(r['ms'][cross:]), 4) for r in ranks]}"
+          f", one device {statistics.median(w_ms[cross:]):.4f} (CUDA events, synchronized a "
+          f"step), of it in the collectives (host clock) "
+          f"{[round(statistics.median(r['coll_ms'][cross:]), 4) for r in ranks]}; one device's "
+          f"step under the profiler {prof[0]:.4f} ms busy in {prof[1]} launches, top {prof[2]}; "
+          f"peak bytes {[r['peak'] for r in ranks]} a rank, one device {peak}; "
+          f"collective bytes a step {sorted({b for r in ranks for b in r['bytes']})} in calls "
+          f"{sorted({c for r in ranks for c in r['calls']})} a rank (want {want_bytes} in "
+          f"{3 * n_attn}); {free} bytes free before the spawn; the world {wall:.1f} s; card "
+          f"{card}")
+    print(f"lm mesh (n): logits against the one-device decode over the whole cache: max |diff| "
+          f"{max(errs):.4g} (bound {LM_BF16_TOL}; by step {[round(e, 4) for e in errs]}); ranks "
+          f"bitwise equal: {same}; greedy tokens equal where the margin passes the bound: "
+          f"{sum(clear)} of {len(clear)} ({sum(agree)} of {len(agree)} in all); layer-0 k at "
+          f"global positions {owned} bitwise the one-device cache's after the border steps: "
+          f"{probes_ok}; C11 at {LM_CP_LEN}: {[r['c11'] for r in ranks]}")
+    check(max(errs) <= LM_BF16_TOL, f"lm mesh (n): logits {errs} from one device's")
+    check(same, "lm mesh (n): the ranks' logits differ")
+    check(all(clear), "lm mesh (n): a greedy token differs where the margin passes the bound")
+    check(probes_ok and owned == sorted(cp_positions(s_local)),
+          f"lm mesh (n): a write landed on the wrong rank ({owned})")
+    check(all(b == want_bytes for r in ranks for b in r["bytes"])
+          and all(c == 3 * n_attn for r in ranks for c in r["calls"]),
+          f"lm mesh (n): collective bytes {ranks[0]['bytes'][:3]} calls {ranks[0]['calls'][:3]}")
+    check(all(r["c11"] and f"outside the cache's {LM_CP_LEN}" in r["c11"] for r in ranks),
+          f"lm mesh (n): C11 at {LM_CP_LEN}: {[r['c11'] for r in ranks]}")
+    return [r["launches"] for r in ranks]
+
+
+def ep_config():
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    return dataclasses.replace(get_arch("jamba-v0.1-52b").config, **LM_EP_OVERRIDES)
+
+
+def ep_serve(served, cfg, rules, prompts, tokens, mesh=None) -> dict:
+    """Prefill `prompts` and decode teacher-forced with `tokens` (B, LM_GEN;
+    `tokens[:, 0]` the prefill's own greedy token when None): the prefill's
+    last logits and each step's (f32 numpy), prefill ms, step ms, dropped
+    choices of the prefill and of decode, and on a mesh the all-to-all
+    bytes a decode step."""
+    from repro_torch.models import transformer as T
+
+    out = {"logits": [], "ms": [], "a2a": []}
+    with moe_drops() as counts:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, caches = T.prefill(served, prompts, cfg, rules, LM_PROMPT + LM_GEN)
+        b.record()
+        b.synchronize()
+        out["prefill_ms"] = a.elapsed_time(b)
+        out["prefill"] = logits[:, -1].float().cpu().numpy()
+        out["prefill_drops"] = total_drops(counts)
+        n_prefill = len(counts)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        for i in range(LM_GEN - 1):
+            if tokens is not None:
+                tok = tokens[:, i:i + 1]
+            if mesh is not None:
+                mesh.counter.reset()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, caches = T.decode_step(served, tok, caches, LM_PROMPT + i, cfg, rules,
+                                           mesh=mesh)
+            b.record()
+            b.synchronize()
+            out["ms"].append(a.elapsed_time(b))
+            out["logits"].append(logits[:, -1].float().cpu().numpy())
+            if mesh is not None:
+                out["a2a"].append(mesh.counter.bytes["all-to-all"])
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out["decode_drops"] = total_drops(counts[n_prefill:])
+    return out
+
+
+def ep_mesh_rank(mesh, prompts, tokens) -> dict:
+    """(o) on one rank: its experts, its rows of the prompts, decode with
+    the witness's tokens of its rows."""
+    from repro_torch.distributed.sharding import ShardingRules, shard
+    from repro_torch.kernels import fused
+    from repro_torch.models import transformer as T
+
+    dev = mesh.device
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = ep_config()
+    rules = ShardingRules.make(mesh, LM_EP_RULE)
+    t0 = time.perf_counter()
+    served = T.cast_weights(T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev,
+                                          rules=rules), cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(served))
+    row = rules.pspec("batch", None)
+    rows = shard(torch.from_numpy(prompts), mesh, row).to(dev)
+    toks = shard(torch.from_numpy(tokens), mesh, row).to(dev)
+    out = ep_serve(served, cfg, rules, rows, toks, mesh)
+    return dict(out, peak=torch.cuda.max_memory_allocated(dev), init_s=init_s,
+                weight_bytes=weight_bytes, launches=dict(fused.LAUNCHES))
+
+
+def lm_ep(dev, card: str) -> list:
+    """(o): the one-device dense dispatch, then the (data=2, model=1)
+    world dispatching by all-to-all; returns the ranks' kernel launch
+    counts."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import choose_transport, rank_devices, run_spmd
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg = ep_config()
+    rng = np.random.default_rng(LM_SEED + 17)
+    prompts = rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    served = T.cast_weights(T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev), cfg)
+    want = ep_serve(served, cfg, ShardingRules.make(None), torch.from_numpy(prompts).to(dev),
+                    None)
+    peak = torch.cuda.max_memory_allocated()
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the witness's greedy tokens, each step's input
+    tokens = np.concatenate([want["prefill"].argmax(-1)[:, None]]
+                            + [lg.argmax(-1)[:, None] for lg in want["logits"][:-1]],
+                            axis=1).astype(np.int32)
+    free = torch.cuda.mem_get_info()[0]
+    t1 = time.perf_counter()
+    ranks = run_spmd(ep_mesh_rank, (2, 1), ("data", "model"), device=dev,
+                     args=(prompts, tokens), timeout=900)
+    wall = time.perf_counter() - t1
+    half = LM_BATCH // 2
+    tol = LM_FULL_TOL["jamba-v0.1-52b"]
+    errs, agree, clear = [], [], []
+    for rank, r in enumerate(ranks):
+        rows = slice(rank * half, (rank + 1) * half)
+        got = [r["prefill"]] + r["logits"]
+        ref = [want["prefill"][rows]] + [w[rows] for w in want["logits"]]
+        errs.append(max(float(np.abs(g - w).max()) for g, w in zip(got, ref)))
+        for g, w in zip(got[:-1], ref[:-1]):
+            top2 = np.sort(w, axis=-1)[:, -2:]
+            ok = g.argmax(-1) == w.argmax(-1)
+            agree.append(bool(ok.all()))
+            clear.append(bool(ok[(top2[:, 1] - top2[:, 0]) > tol].all()))
+    a2a = sorted({b for r in ranks for b in r["a2a"]})
+    transport = choose_transport(rank_devices(2, dev))
+    e_local = cfg.n_experts // 2
+    # a decode step: every MoE layer sends its (rows, E, C, d) bf16 buffers out and back
+    want_a2a = (cfg.n_periods * sum(s.mlp_kind == "moe" for s in cfg.period()) * 2 * half
+                * cfg.n_experts * moe.capacity_of(1, cfg) * cfg.d_model * 2)
+    print(f"lm mesh (o) {cfg.name}: one period ({cfg.n_layers} layers) under the expert rule "
+          f"{LM_EP_RULE}, (data=2, model=1) on {dev} ({transport}), {e_local} experts a rank, "
+          f"batch {LM_BATCH} ({half} a rank), prompt {LM_PROMPT}, {LM_GEN} generated: prefill "
+          f"s {[round(r['prefill_ms'] / 1e3, 4) for r in ranks]} (ranks), "
+          f"{want['prefill_ms'] / 1e3:.4f} (one device, dense); decode ms a step, median "
+          f"{[round(statistics.median(r['ms']), 4) for r in ranks]} (ranks), "
+          f"{statistics.median(want['ms']):.4f} (one device; CUDA events, synchronized a step); "
+          f"all-to-all bytes a decode step a rank {a2a} (want {want_a2a}); weights "
+          f"{[r['weight_bytes'] for r in ranks]} bytes a rank, built in "
+          f"{[round(r['init_s'], 1) for r in ranks]} s; peak {[r['peak'] for r in ranks]} bytes "
+          f"a rank, one device {peak}; {free} bytes free before the spawn; the world "
+          f"{wall:.1f} s; card {card}")
+    print(f"lm mesh (o): logits against the one-device dense dispatch: max |diff| "
+          f"{[round(e, 5) for e in errs]} by rank (bound {tol}); greedy tokens equal "
+          f"{sum(agree)} of {len(agree)} steps and ranks, where the margin passes the bound "
+          f"{sum(clear)} of {len(clear)}; dropped choices, prefill: ranks "
+          f"{[r['prefill_drops'] for r in ranks]}, one device {want['prefill_drops']}; decode: "
+          f"{[r['decode_drops'] for r in ranks]}, {want['decode_drops']}")
+    check(max(errs) <= tol, f"lm mesh (o): logits {errs} from the dense dispatch's")
+    check(all(clear), "lm mesh (o): a greedy token differs where the margin passes the bound")
+    check(sum(r["prefill_drops"] for r in ranks) == want["prefill_drops"]
+          and all(r["decode_drops"] == 0 for r in ranks) and want["decode_drops"] == 0,
+          "lm mesh (o): the drops differ from the dense dispatch's")
+    check(a2a == [want_a2a], f"lm mesh (o): all-to-all bytes a step {a2a}, want {want_a2a}")
+    return [r["launches"] for r in ranks]
+
+
+def ep_train_inputs(cfg) -> dict:
+    b, s = LM_EP_TRAIN
+    toks = np.random.default_rng(LM_SEED + 19).integers(1, cfg.vocab_size, (b, s + 1))
+    return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32),
+            "mask": np.ones((b, s), np.float32)}
+
+
+def ep_train_step(cfg, model, rules, **kw):
+    from repro_torch.models import transformer as T
+    from repro_torch.train import init_state, make_optimizer, make_train_step, warmup_cosine
+
+    opt = make_optimizer("adamw", warmup_cosine(*LM_TRAIN_LR))
+    step = make_train_step(lambda m, b: T.loss_fn(m.tree(), b, cfg, rules), opt, rules=rules,
+                           **kw)
+    return step, init_state(model, opt)
+
+
+def ep_train_rank(mesh, tree, batch) -> dict:
+    """(p) on one rank: one meshed AdamW step of the reduced llama4 under
+    its expert rule, its rows of `batch`."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import ShardingRules, shard
+    from repro_torch.kernels import fused
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamTree
+
+    dev = mesh.device
+    fused.reset_launches()
+    cfg = get_arch("llama4-maverick-400b-a17b").reduced
+    rules = ShardingRules.make(mesh, LM_EP_RULE)
+    model = ParamTree(T.rank_params(T.params_from_numpy(tree, cfg, dev), cfg, rules))
+    specs = T.flat_rank_param_pspecs(cfg, rules)
+    step, state = ep_train_step(cfg, model, rules, param_specs=specs)
+    rows = {k: shard(torch.from_numpy(v), mesh, rules.pspec("batch", None)).to(dev)
+            for k, v in batch.items()}
+    _, metrics = step(state, rows)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: p.grad.cpu().numpy() for k, p in model.named_parameters()},
+            "params": {k: p.detach().cpu().numpy() for k, p in model.named_parameters()},
+            "specs": specs, "a2a": mesh.counter.calls["all-to-all"],
+            "launches": dict(fused.LAUNCHES)}
+
+
+def lm_ep_train(dev, card: str) -> list:
+    """(p): the CPU's one-device step over 2 microbatches, then the world;
+    returns the ranks' kernel launch counts."""
+    import types
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import ShardingRules, shard
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamTree
+
+    cfg = get_arch("llama4-maverick-400b-a17b").reduced
+    tree = lm_numpy_tree(cfg, LM_SEED)
+    batch = ep_train_inputs(cfg)
+    rules = ShardingRules.make(None)
+    model = ParamTree(T.params_from_numpy(tree, cfg, "cpu"))
+    step, state = ep_train_step(cfg, model, rules, microbatches=2)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    half = LM_EP_TRAIN[0] // 2
+    with torch.no_grad():
+        losses = [float(T.loss_fn(model.tree(), {k: v[i:i + half] for k, v in cpu_batch.items()},
+                                  cfg, rules)[0]) for i in (0, half)]
+    _, metrics = step(state, cpu_batch)
+    t1 = time.perf_counter()
+    ranks = run_spmd(ep_train_rank, (2, 1), ("data", "model"), device=dev, args=(tree, batch),
+                     timeout=600)
+    wall = time.perf_counter() - t1
+    errs = {"loss": abs(ranks[0]["metrics"]["loss"] - float(np.mean(losses))),
+            "grad_norm": abs(ranks[0]["metrics"]["grad_norm"] - float(metrics["grad_norm"]))}
+    worst = {"grads": 0.0, "params": 0.0}
+    ok = True
+    named = dict(model.named_parameters())
+    for rank, r in enumerate(ranks):
+        mesh = types.SimpleNamespace(shape={"data": 2, "model": 1}, axis_names=("data", "model"),
+                                     coords={"data": rank, "model": 0})
+        for name, p in named.items():
+            spec = r["specs"][name]
+            for key, want in (("grads", p.grad), ("params", p.detach())):
+                w = shard(want, mesh, spec).numpy()
+                g = r[key][name]
+                worst[key] = max(worst[key], float(np.abs(g - w).max()))
+                ok &= bool(np.allclose(g, w, rtol=LM_EP_TRAIN_TOL, atol=LM_EP_TRAIN_TOL))
+    split = sorted({n for r in ranks for n, sp in r["specs"].items() if any(sp)})
+    print(f"lm mesh (p) {cfg.name}: one meshed AdamW step under {LM_EP_RULE}, f32, "
+          f"{LM_EP_TRAIN[0]} x {LM_EP_TRAIN[1]} on (data=2, model=1) on {dev}, against the "
+          f"CPU's one-device step over 2 microbatches (the ranks' rows): loss "
+          f"{ranks[0]['metrics']['loss']:.7f} against {np.mean(losses):.7f} (|diff| "
+          f"{errs['loss']:.3g}), grad_norm |diff| {errs['grad_norm']:.3g}; max |diff| of every "
+          f"gradient block {worst['grads']:.3g}, of the updated parameters "
+          f"{worst['params']:.3g} (rtol=atol={LM_EP_TRAIN_TOL}); the split leaves {split}; "
+          f"all-to-all calls a rank {[r['a2a'] for r in ranks]}; the world {wall:.1f} s; card "
+          f"{card}")
+    check(ok and errs["loss"] <= LM_EP_TRAIN_TOL, f"lm mesh (p): {errs}, {worst}")
+    check(len(split) == 6 and all(r["a2a"] == 8 for r in ranks),
+          f"lm mesh (p): split {split}, all-to-alls {[r['a2a'] for r in ranks]}")
+    return [r["launches"] for r in ranks]
+
+
+def phase_lm_mesh(dev) -> None:
+    """The meshed LM (``models.layers.cp_decode_attention``,
+    ``models.moe._moe_apply_a2a``, ``distributed.comm.all_to_all``), ranks
+    sharing the card over gloo staged through pinned memory (NCCL refuses
+    two ranks on one card), so the times say little of collectives and
+    parity is the bar; each witness runs in this process first and is freed
+    before the spawn:
+
+    (n) context-parallel decode of the full h2o-danube-1.8b at long_500k's
+        shape (batch 1, LM_CP_LEN positions) on (data=2), each rank filling
+        its own slice: 2 steps across the slices' border (the writes land
+        on the owning rank, layer 0's k bitwise the one-device cache's),
+        then LM_GEN steps at the end of the cache, teacher-forced with the
+        one-device decode's greedy tokens, the logits within LM_BF16_TOL,
+        the ranks' bitwise equal, one pmax and two psums an attention layer,
+        C11 at the global length;
+    (o) expert-parallel serving: one period of jamba-v0.1-52b under llama4's
+        expert rule on (data=2, model=1), LM_BATCH x LM_PROMPT, LM_GEN
+        generated, against the one-device dense dispatch: logits within
+        (f)'s bound, the drops equal, the all-to-all bytes a decode step;
+    (p) expert-parallel training: one meshed AdamW step of the reduced
+        llama4 in f32 against the CPU's one-device step over 2 microbatches
+        (the same function), every gradient block and updated parameter
+        within LM_EP_TRAIN_TOL.
+
+    None of the eight kernels is launched, by the witnesses in this process
+    or by any rank."""
+    from repro_torch.kernels import fused
+
+    t0 = time.perf_counter()
+    card = card_line(CARD)
+    fused.reset_launches()
+    counts = lm_cp(dev, card) + lm_ep(dev, card) + lm_ep_train(dev, card)
+    counts.append(dict(fused.LAUNCHES))
+    launched = {k: sum(c.get(k, 0) for c in counts) for k in fused.LAUNCHES}
+    launched = {k: v for k, v in launched.items() if v}
+    check(not launched, f"lm mesh: the meshed LM launched {launched}")
+    print(f"lm mesh: none of the eight kernels launched, by the witnesses or by the "
+          f"{len(counts) - 1} rank runs of (n)-(p); {time.perf_counter() - t0:.1f} s in all; "
+          f"card {card}")
 
 
 def lm_profile(fn, top: int = 4):
@@ -4253,6 +4825,7 @@ def main() -> int:
     phase_lm_serve(dev)
     phase_lm_families(dev)
     phase_lm_train(dev)
+    phase_lm_mesh(dev)
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
                **store_by_path, **service_by_path, **mesh_by_path, **train_by_path,

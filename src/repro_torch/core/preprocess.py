@@ -9,11 +9,12 @@ Transform runs on PyTorch tensors, on the device the pages were put on.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict
 
 import numpy as np
 import torch
 
+from repro_torch.common.util import ShapeDtype
 from repro_torch.core.opgraph import (
     LoweredPlan,
     build_transform_graph,
@@ -27,11 +28,6 @@ from repro_torch.data.storage import CorruptPartitionError
 from repro_torch.kernels import ops as K
 
 MiniBatch = Dict[str, torch.Tensor]
-
-
-class ShapeDtype(NamedTuple):
-    shape: tuple
-    dtype: torch.dtype
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +99,12 @@ def pages_shape_dtypes(spec: TransformSpec, rows: int) -> Dict[str, ShapeDtype]:
     if cfg.dup_factor > 1:
         out["sparse_refs"] = ShapeDtype((rows,), i32)
     return out
+
+
+def megabatch_pages_shape_dtypes(spec: TransformSpec, rows: int, k: int) -> Dict[str, ShapeDtype]:
+    """Shapes and dtypes of a K-partition stacked megabatch's pages."""
+    return {name: ShapeDtype((k, *s.shape), s.dtype)
+            for name, s in pages_shape_dtypes(spec, rows).items()}
 
 
 def stack_pages(pages_list) -> Dict[str, np.ndarray]:

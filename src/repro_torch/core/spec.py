@@ -53,6 +53,20 @@ class TransformSpec:
             gen_max=np.full(cfg.n_generated, cfg.embedding_rows, np.uint32),
         )
 
+    @property
+    def n_tables(self) -> int:
+        return self.cfg.n_tables
+
+    def table_sizes(self) -> np.ndarray:
+        """Embedding rows per table (multi-hot tables first, then generated)."""
+        return np.concatenate([self.sparse_max, self.gen_max]).astype(np.int64)
+
+    def graph(self):
+        """This Transform as the declarative operator graph (``core.opgraph``)."""
+        from repro_torch.core.opgraph import build_transform_graph
+
+        return build_transform_graph(self)
+
 
 def spec_from_arrays(
     cfg_fields: Mapping[str, Any], arrays: Mapping[str, Any]

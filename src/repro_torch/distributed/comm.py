@@ -21,6 +21,11 @@ which block; the enqueue on NCCL).
   new leading axis) and ``gather_shards`` (an all-gather along a tensor
   axis whose backward sums the cotangent over the axis and keeps this
   rank's block: the FSDP weight gather).
+* ``all_to_all(x, mesh, axis, split_dim, concat_dim)`` (``all-to-all``):
+  ``jax.lax.all_to_all(..., tiled=True)``, the expert exchange of the
+  MoE's all-to-all dispatch, as a ``torch.autograd.Function`` whose
+  backward is the reverse exchange.  It counts max(operand, result) bytes,
+  the reference HLO's payload; tiled, the two are equal.
 
 Each call runs on the mesh's transport (``launch.mesh``): NCCL on device
 tensors when every rank has a card of its own, gloo on host tensors for CPU
@@ -37,7 +42,7 @@ from typing import Dict, List
 import torch
 import torch.distributed as dist
 
-KINDS = ("collective-permute", "all-reduce", "all-gather")
+KINDS = ("collective-permute", "all-reduce", "all-gather", "all-to-all")
 
 
 @dataclasses.dataclass
@@ -196,3 +201,44 @@ def gather_shards(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return x
     return _GatherShards.apply(x, mesh, axis, dim)
+
+
+def _exchange(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Chunk j of `x` along `split_dim` goes to rank j of `axis`; the chunks
+    received from ranks 0..n-1 are concatenated along `concat_dim`."""
+    n = mesh.shape[axis]
+    if x.shape[split_dim] % n:
+        raise ValueError(f"axis {split_dim} of a {tuple(x.shape)} tensor does not split "
+                         f"into {n} chunks over {axis}")
+    t0 = time.perf_counter()
+    front = x.movedim(split_dim, 0)
+    chunk = (front.shape[0] // n, *front.shape[1:])
+    send = _to_wire(mesh, front.reshape(n, *chunk))
+    recv = _wire_like(mesh, send)
+    dist.all_to_all_single(recv, send, group=mesh.groups[axis])
+    recv = _from_wire(recv, x)
+    out = torch.cat([recv[i].movedim(0, split_dim) for i in range(n)], dim=concat_dim)
+    mesh.counter.add("all-to-all", max(_nbytes(x), _nbytes(out)), t0)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return _exchange(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return _exchange(g.contiguous(), mesh, axis, concat_dim, split_dim), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    `x`'s `split_dim` cut into one chunk a rank of `axis`, chunk j sent to
+    rank j, the received chunks concatenated along `concat_dim` in rank
+    order.  Its backward sends the cotangent back the same way."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)

@@ -18,8 +18,10 @@ A spec (``pspec``) is a tuple with one entry per tensor axis: None
 (replicated), a mesh axis name, or a tuple of mesh axis names (major
 first).  Where the reference hands a ``PartitionSpec`` to XLA, the port runs
 one program per rank (``launch.mesh``): ``shard`` slices a global tensor to
-this rank's block, ``gather`` reassembles it, and ``constrain`` checks a
-local tensor's rank and moves nothing.
+this rank's block, ``gather`` reassembles it, and ``constrain``
+(``shard_activation``) checks a local tensor's rank and moves nothing.
+``ShardingRules.sharding`` gives a ``NamedSharding``: the mesh and the spec
+in one frozen record, which specs can carry as the reference's do.
 """
 
 from __future__ import annotations
@@ -52,6 +54,15 @@ DEFAULT_RULES: dict[str, AxisVal] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec over it (the reference's ``jax.sharding.NamedSharding``
+    as a plain record)."""
+
+    mesh: object
+    spec: Spec
+
+
 @dataclasses.dataclass
 class ShardingRules:
     mapping: dict[str, AxisVal]
@@ -78,12 +89,13 @@ class ShardingRules:
     def pspec(self, *logical: Optional[str]) -> Spec:
         return logical_pspec(self.mapping, *logical)
 
+    def sharding(self, *logical: Optional[str]) -> Optional[NamedSharding]:
+        if self.mesh is None:
+            return None
+        return NamedSharding(self.mesh, self.pspec(*logical))
+
     def constrain(self, x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-        """A rank's tensor is already its block: check that `logical` names
-        every axis of `x`, and move nothing."""
-        if len(logical) != x.dim():
-            raise ValueError(f"{len(logical)} logical axes for a {x.dim()}-d tensor")
-        return x
+        return shard_activation(x, self, *logical)
 
     def axis_size(self, logical: str) -> int:
         """Product of mesh-axis sizes a logical axis maps to (1 if unmapped)."""
@@ -113,6 +125,14 @@ def logical_pspec(rules: Mapping[str, AxisVal], *logical: Optional[str]) -> Spec
     for name in logical:
         axes.append(resolve(name))
     return tuple(axes)
+
+
+def shard_activation(x: torch.Tensor, rules: ShardingRules, *logical) -> torch.Tensor:
+    """A rank's tensor is already its block: check that `logical` names
+    every axis of `x`, and move nothing."""
+    if len(logical) != x.dim():
+        raise ValueError(f"{len(logical)} logical axes for a {x.dim()}-d tensor")
+    return x
 
 
 def entry_axes(entry: AxisVal) -> Tuple[str, ...]:

@@ -20,7 +20,8 @@ Under ``cfg.remat`` other than ``"none"`` the reference checkpoints every
 encoder and decoder layer with a plain ``jax.checkpoint`` (nothing saved),
 whatever the policy's name; so does the port, with
 ``transformer.remat_call("full", ...)`` when a gradient is taken.
-``cache_pspecs`` waits for ROADMAP A5.
+Decode stays plain on any mesh, as the reference's does: it never takes
+the context-parallel path.
 """
 
 from __future__ import annotations
@@ -193,6 +194,14 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     dt = dtype_of(cfg.dtype)
     return {name: torch.empty(shape, dtype=dt, device="meta")
             for name in ("self_k", "self_v", "cross_k", "cross_v")}
+
+
+def cache_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
+    """The specs of the decode cache dict under `rules`."""
+    model_n = rules.mesh.shape.get("model", 1) if rules.mesh else 1
+    kv_ax = "kv_heads" if cfg.n_kv_heads % max(model_n, 1) == 0 else None
+    p = rules.pspec("layers", "batch", "kv_seq", kv_ax, None)
+    return {"self_k": p, "self_v": p, "cross_k": p, "cross_v": p}
 
 
 def cross_caches(params, enc_out: torch.Tensor, cfg: ModelConfig,

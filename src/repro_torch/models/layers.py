@@ -15,8 +15,10 @@ attention in f32, RoPE frequencies computed in numpy float32 as the
 reference computes them, and attention as the reference's blockwise online
 softmax (q blocks of 512, kv blocks of 1024, ``-1e30`` fills, every kv block
 visited in order, fully masked ones included), with no library attention
-and no compile.  ``cp_decode_attention`` (context-parallel decode over a
-mesh) is not ported (ROADMAP A5).
+and no compile.  ``cp_decode_attention`` is the context-parallel decode
+over a mesh: each rank holds a contiguous slice of the cache's sequence
+and the partial softmaxes combine by one ``pmax`` and two ``psum``s
+(``distributed.comm``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,32 +58,40 @@ def _path_seed(path: str) -> int:
 
 
 def init_from_schema(
-    generator: torch.Generator, schema: Schema, dtype: torch.dtype, device: torch.device
+    generator: torch.Generator, schema: Schema, dtype: torch.dtype, device: torch.device,
+    specs: Optional[Dict[str, Any]] = None, mesh=None,
 ) -> Dict[str, Any]:
     """Nested dict of tensors on `device`, one per ``ParamDef``.  Each
     normal leaf draws from its own generator on `device`, seeded by
     `generator`'s seed and the leaf's path (the counterpart of the
     reference's ``fold_in``), so a leaf's values do not depend on the order
     of the schema.  Leaves are filled in place: a full-size table takes no
-    second buffer."""
+    second buffer.  With `specs` (a tree of specs over `mesh`) each leaf a
+    spec splits is drawn whole and cut to this rank's block, one leaf at a
+    time."""
     base = generator.initial_seed()
 
-    def walk(node, path):
-        if isinstance(node, ParamDef):
-            if node.init == "zeros":
-                return torch.zeros(node.shape, dtype=dtype, device=device)
-            if node.init == "ones":
-                return torch.ones(node.shape, dtype=dtype, device=device)
-            scale = node.scale if node.scale is not None else 1.0 / math.sqrt(
-                max(node.fan_in(), 1)
-            )
-            leaf = torch.Generator(device=device)
-            leaf.manual_seed((base * 0x9E3779B1 + _path_seed(path)) % (1 << 63))
-            t = torch.empty(node.shape, dtype=torch.float32, device=device)
-            return t.normal_(generator=leaf).mul_(scale).to(dtype)
-        return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+    def draw(node, path):
+        if node.init == "zeros":
+            return torch.zeros(node.shape, dtype=dtype, device=device)
+        if node.init == "ones":
+            return torch.ones(node.shape, dtype=dtype, device=device)
+        scale = node.scale if node.scale is not None else 1.0 / math.sqrt(
+            max(node.fan_in(), 1)
+        )
+        leaf = torch.Generator(device=device)
+        leaf.manual_seed((base * 0x9E3779B1 + _path_seed(path)) % (1 << 63))
+        t = torch.empty(node.shape, dtype=torch.float32, device=device)
+        return t.normal_(generator=leaf).mul_(scale).to(dtype)
 
-    return walk(schema, "")
+    def walk(node, path, spec):
+        if isinstance(node, ParamDef):
+            t = draw(node, path)
+            return shard(t, mesh, spec).clone() if spec is not None and any(spec) else t
+        return {k: walk(v, f"{path}/{k}", None if spec is None else spec[k])
+                for k, v in node.items()}
+
+    return walk(schema, "", specs)
 
 
 def pspecs_from_schema(schema: Schema, rules) -> Dict[str, Any]:
@@ -321,6 +334,57 @@ def decode_attention(
     logits = torch.where(m[:, None, None, :], logits, -1e30)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def cp_decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D), whole on every rank
+    k_local: torch.Tensor,  # (B, S_local, K, D): this rank's slice of the cache
+    v_local: torch.Tensor,
+    cache_len: torch.Tensor,  # (B,) global valid prefix length (new token included)
+    *,
+    mesh,
+    axis: str = "data",
+    pattern: str = "full",
+    window: int = 0,
+    chunk: int = 0,
+) -> torch.Tensor:
+    """Context-parallel decode: the KV cache's sequence split over `axis`,
+    rank i of the axis holding positions [i * S_local, (i + 1) * S_local).
+
+    Flash-decoding combine, in the reference's arithmetic: each rank takes
+    its slice's masked f32 logits, their max, the exponentials' sum and the
+    weighted sum of values; the ranks' partials merge by a ``pmax`` of the
+    maxima and ``psum``s of the rescaled sums, divided at the end by the
+    sum clamped at 1e-30.  Every rank returns the whole result in
+    ``q.dtype``."""
+    B, S, K, D = k_local.shape
+    H = q.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    shard = mesh.coords[axis]
+    qr = q.reshape(B, K, G, D)
+    logits = torch.einsum("bkgd,bskd->bkgs", qr.to(torch.float32),
+                          k_local.to(torch.float32)) * scale
+    kpos = shard * S + torch.arange(S, device=q.device)[None, :]
+    qpos = cache_len[:, None] - 1
+    m = kpos < cache_len[:, None]
+    if pattern == "swa" and window > 0:
+        m &= (qpos - kpos) < window
+    if pattern == "chunked" and chunk > 0:
+        m &= torch.div(qpos, chunk, rounding_mode="floor") == torch.div(
+            kpos, chunk, rounding_mode="floor")
+    logits = torch.where(m[:, None, None, :], logits, -1e30)
+    m_loc = logits.amax(dim=-1)  # (B, K, G)
+    p = torch.exp(logits - m_loc[..., None])
+    del logits
+    l_loc = p.sum(dim=-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v_local.to(torch.float32))
+    m_glob = comm.pmax(m_loc, mesh, axis)
+    corr = torch.exp(m_loc - m_glob)
+    l_glob = comm.psum(l_loc * corr, mesh, axis)
+    acc_glob = comm.psum(acc * corr[..., None], mesh, axis)
+    out = acc_glob / torch.clamp_min(l_glob[..., None], 1e-30)
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 

@@ -13,9 +13,16 @@ blocks (tb = 1) never drop.  Where the reference scans over blocks, the
 port loops.  Every expert's weights are read for every block, as the
 reference's dense dispatch reads them.
 
-The all-to-all dispatch of experts sharded over a batch mesh axis
-(``_moe_apply_a2a``) is not ported (ROADMAP A5): ``moe_apply`` raises
-where the reference would take it.
+Where 'experts' maps to a mesh axis that also carries the batch (llama4's
+rule: experts over ``data``), ``moe_apply`` takes the reference's
+all-to-all dispatch (``_moe_apply_a2a``) exactly where the reference does:
+each rank routes its own batch rows, sends every expert's buffer to the
+rank that holds the expert (``comm.all_to_all``), runs the FFN of its
+``e / n`` experts and sends the outputs back.  A rank's ``x`` is its
+block of rows, so the global batch is the block times the batch axes'
+size and always divides by the experts' axis: the reference's dense
+fallback for a batch the axis does not divide has no caller here.  The
+aux loss is the mean of the ranks' aux over the axis.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import comm
 from repro_torch.models.layers import ParamDef, Schema, load_weight
 
 # Tokens routed per block, per group (the reference's constant).
@@ -88,8 +96,94 @@ def _experts_over_batch(rules) -> bool:
     return isinstance(exp_ax, str) and exp_ax in batch_axes
 
 
+class _AuxMean(torch.autograd.Function):
+    """The mean of the ranks' aux over `axis`.  `axis` carries the batch:
+    every rank's loss holds the mean, and the meshed train step averages
+    the ranks' gradients over the batch axes, so the rank's own aux takes
+    the cotangent as it is (the step's division makes it the mean's
+    1/n)."""
+
+    @staticmethod
+    def forward(ctx, aux, mesh, axis):
+        return comm.psum(aux, mesh, axis) / mesh.shape[axis]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _expert_block(w: torch.Tensor, cfg, mesh, axis: str) -> torch.Tensor:
+    """The rank's experts of one expert stack (E or E / n, d_in, d_out):
+    its block along the experts axis (sliced here where `w` is whole).
+    The other two axes must be whole: tensor parallelism over 'ff' is not
+    run by the port (ROADMAP A8)."""
+    e, n = cfg.n_experts, mesh.shape[axis]
+    full_d = {cfg.d_model, cfg.d_ff}
+    if w.shape[0] == e and n > 1:
+        i = mesh.coords[axis]
+        w = w[i * (e // n):(i + 1) * (e // n)]
+    if w.shape[0] != e // n or set(w.shape[1:]) != full_d:
+        raise ValueError(f"an expert stack of {tuple(w.shape)} is not a rank's {e // n} "
+                         f"whole experts of ({cfg.d_model}, {cfg.d_ff})")
+    return w
+
+
+def _moe_apply_a2a(params, x: torch.Tensor, cfg, rules, tb: int, nb: int, capacity: int,
+                   axis: str = "data") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over a batch axis by explicit all-to-alls, on this
+    rank's rows `x` (bl, S, d): the port of the reference's shard_map body.
+    Routing and the dense token compute stay on the rank; the dispatched
+    buffers (bl, E, C, d) go to the experts' ranks, (bl * n, E / n, C, d)
+    come back for this rank's experts, and the outputs return by the
+    reverse exchange."""
+    mesh = rules.mesh
+    bl, s, d = x.shape
+    k, e = cfg.top_k, cfg.n_experts
+    nd = mesh.shape[axis]
+    e_local = e // nd
+    dt = x.dtype
+    router = params["router"].to(torch.float32)
+    w_gate, w_up, w_down = (_expert_block(params[name], cfg, mesh, axis).to(dt)
+                            for name in ("w_gate", "w_up", "w_down"))
+    outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nb):
+        xt = x[:, i * tb:(i + 1) * tb, :]
+        dispatch, gates, aux_b = _route_block(xt, router, k, capacity)
+        disp = dispatch.to(dt)
+        del dispatch
+        xe = torch.einsum("gtec,gtd->gecd", disp, xt).reshape(bl, nd, e_local, capacity, d)
+        xe = comm.all_to_all(xe, mesh, axis, 1, 0).reshape(bl * nd, e_local, capacity, d)
+        g = torch.einsum("gecd,edf->gecf", xe, w_gate)
+        u = torch.einsum("gecd,edf->gecf", xe, w_up)
+        del xe
+        h = F.silu(g) * u
+        del g, u
+        ye = torch.einsum("gecf,efd->gecd", h, w_down)
+        del h
+        ye = comm.all_to_all(ye.reshape(bl * nd, 1, e_local, capacity, d), mesh, axis, 0, 1)
+        outs.append(torch.einsum("gtec,gecd->gtd", disp * gates[..., None].to(dt),
+                                 ye.reshape(bl, e, capacity, d)))
+        aux = aux + aux_b
+    out = outs[0] if nb == 1 else torch.cat(outs, dim=1)
+    if nb > 1:
+        aux = aux / nb
+    return rules.constrain(out, "batch", "seq", "embed"), _AuxMean.apply(aux, mesh, axis)
+
+
+def a2a_axis(cfg, rules):
+    """The mesh axis over which the experts dispatch by all-to-all ('experts'
+    mapped to a mesh axis that also carries the batch and divides the
+    experts), or None."""
+    mesh, exp_ax = rules.mesh, rules.mapping.get("experts")
+    if (_experts_over_batch(rules) and mesh is not None and exp_ax in mesh.axis_names
+            and cfg.n_experts % mesh.shape[exp_ax] == 0):
+        return exp_ax
+    return None
+
+
 def moe_apply(params, x: torch.Tensor, cfg, rules) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux loss (f32 scalar))."""
+    """x (B, S, d) -> (out (B, S, d), aux loss (f32 scalar)).  On a mesh `x`
+    is this rank's block of rows."""
     b, s, d = x.shape
     k, e = cfg.top_k, cfg.n_experts
     tb = block_size(s)
@@ -97,11 +191,12 @@ def moe_apply(params, x: torch.Tensor, cfg, rules) -> Tuple[torch.Tensor, torch.
     capacity = capacity_of(tb, cfg)
     dt = x.dtype
     ep_over_batch = _experts_over_batch(rules)
-    mesh, exp_ax = rules.mesh, rules.mapping.get("experts")
-    if (ep_over_batch and mesh is not None and exp_ax in mesh.axis_names
-            and e % mesh.shape[exp_ax] == 0 and b % mesh.shape[exp_ax] == 0):
-        raise NotImplementedError("the all-to-all expert dispatch (_moe_apply_a2a) is not "
-                                  "ported yet (ROADMAP A5)")
+    axis = a2a_axis(cfg, rules)
+    # the reference dispatches densely where `axis` does not divide the
+    # global batch; here that batch is the block times the batch axes'
+    # size, and `axis` is one of those axes, so it always divides
+    if axis is not None:
+        return _moe_apply_a2a(params, x, cfg, rules, tb, nb, capacity, axis=axis)
     lead = None if ep_over_batch else "batch"
     w_gate = load_weight(params["w_gate"], rules, "experts", None, "ff", dtype=dt)
     w_up = load_weight(params["w_up"], rules, "experts", None, "ff", dtype=dt)

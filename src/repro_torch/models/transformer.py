@@ -52,10 +52,20 @@ in one pass (indexing period by period would add a full-size zero
 gradient a period).
 
 Every family of the registry serves and trains: attention (full, swa,
-local_global, chunked), mamba and MoE layers.  Context-parallel decode
-(``shard_kv_seq`` on a mesh with a ``data`` axis) raises
-``NotImplementedError`` (ROADMAP A5); on a mesh without one it runs plain
-decode, as the reference does.
+local_global, chunked), mamba and MoE layers.
+
+Context-parallel decode (``shard_kv_seq`` on a mesh with a ``data`` axis,
+as ``launch.specs.shape_rules`` sets it up for ``long_500k``): each rank
+holds its contiguous slice of every attention cache's sequence
+(``cache_pspecs``: ``kv_seq -> data``) and the whole batch.  The new
+token's k and v are written only by the rank whose slice holds position
+``cache_len``, at the local index; attention is
+``layers.cp_decode_attention``; C11 checks ``cache_len`` against the global
+length, the data axis's size times the slice.  The SSM state and conv
+window are not sequence-sharded: every rank computes them whole.  On a
+mesh without a ``data`` axis decode runs plain, as the reference's does.
+The weights stay whole on every rank but the MoE's expert stacks where
+they dispatch by all-to-all (``moe``).
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.common.util import resolve_device
+from repro_torch.distributed.sharding import entry_axes, shard
 from repro_torch.models import moe, ssm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
@@ -79,6 +90,7 @@ from repro_torch.models.layers import (
     Schema,
     apply_rope,
     blockwise_attention,
+    cp_decode_attention,
     decode_attention,
     init_from_schema,
     load_weight,
@@ -137,12 +149,16 @@ def model_schema(cfg: ModelConfig) -> Schema:
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: torch.device | str | None = None) -> Dict[str, Any]:
+                device: torch.device | str | None = None, rules=None) -> Dict[str, Any]:
     """Parameters drawn from `generator` (not the reference's numbers: see
     ``models.layers``), in ``cfg.param_dtype``, on `device` (CUDA unless
-    named)."""
+    named).  With meshed `rules`, this rank's blocks (``rank_params`` of
+    the same draw), the whole tree never held at once."""
+    specs, mesh = None, None
+    if rules is not None and rules.mesh is not None:
+        specs, mesh = rank_param_pspecs(cfg, rules), rules.mesh
     return init_from_schema(generator, model_schema(cfg), dtype_of(cfg.param_dtype),
-                            resolve_device(device))
+                            resolve_device(device), specs, mesh)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
@@ -155,6 +171,54 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
 
 def param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
     return pspecs_from_schema(model_schema(cfg), rules)
+
+
+def rank_param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
+    """The specs of the parameters as a rank holds them: the expert stacks
+    split over their experts axis where the MoE dispatches by all-to-all
+    (``moe.a2a_axis``), every other leaf whole.  Tensor parallelism and
+    FSDP, the rest of the reference's layout, wait for ROADMAP A8."""
+    axis = moe.a2a_axis(cfg, rules)
+
+    def walk(node):
+        if isinstance(node, ParamDef):
+            return tuple(axis if (a == "experts" and axis is not None) else None
+                         for a in node.axes)
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(model_schema(cfg))
+
+
+def flat_rank_param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
+    """``rank_param_pspecs`` under ``layers.ParamTree``'s dotted names: the
+    ``param_specs`` of a meshed ``train.make_train_step``."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            name = f"{path}.{k}" if path else k
+            if isinstance(v, dict):
+                walk(v, name)
+            else:
+                out[name] = v
+
+    walk(rank_param_pspecs(cfg, rules), "")
+    return out
+
+
+def rank_params(params: Dict[str, Any], cfg: ModelConfig, rules) -> Dict[str, Any]:
+    """This rank's blocks of whole `params` under ``rank_param_pspecs``
+    (copies of the split leaves, the other leaves themselves)."""
+    specs = rank_param_pspecs(cfg, rules)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if any(spec):
+            return shard(node, rules.mesh, spec).clone()
+        return node
+
+    return walk(params, specs)
 
 
 _CAST = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in", "w_out", "head", "embed",
@@ -413,19 +477,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for name, c in cache_spec(cfg, batch, max_seq).items()}
 
 
+def cache_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
+    """The specs of the decode cache tree under `rules`."""
+    # kv_heads shard over 'model' only when divisible (GQA kv counts are
+    # usually smaller than the model axis)
+    model_n = rules.mesh.shape.get("model", 1) if rules.mesh else 1
+    kv_ax = "kv_heads" if cfg.n_kv_heads % max(model_n, 1) == 0 else None
+    out: Dict[str, Any] = {}
+    for i, spec in enumerate(cfg.period()):
+        if spec.kind == "attn":
+            p = rules.pspec("layers", "batch", "kv_seq", kv_ax, None)
+            out[f"p{i}"] = {"k": p, "v": p}
+        else:
+            out[f"p{i}"] = {
+                "h": rules.pspec("layers", "batch", "ssm_heads", None, None),
+                "conv": rules.pspec("layers", "batch", None, None),
+            }
+    return out
+
+
 def _attn_decode(p, x: torch.Tensor, lcache: Dict[str, torch.Tensor], cache_len: int,
-                 spec: LayerSpec, cfg: ModelConfig, rules) -> torch.Tensor:
+                 spec: LayerSpec, cfg: ModelConfig, rules, mesh=None,
+                 cp: bool = False) -> torch.Tensor:
     """One attention layer of a decode step; writes the token's k and v at
-    `cache_len` of `lcache` (this period's (B, max_seq, K, hd) views)."""
+    `cache_len` of `lcache` (this period's (B, max_seq, K, hd) views, or
+    under `cp` this rank's (B, S_local, K, hd) slices: written only where
+    the slice holds `cache_len`)."""
     b = x.shape[0]
     xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
     pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=x.device)
     q, kt, vt = _qkv(p, xn, pos, cfg, rules)
-    lcache["k"][:, cache_len] = kt[:, 0]
-    lcache["v"][:, cache_len] = vt[:, 0]
     valid = torch.full((b,), cache_len + 1, dtype=torch.int32, device=x.device)
-    out = decode_attention(q, lcache["k"], lcache["v"], valid, pattern=spec.attn_pattern,
-                           window=cfg.window, chunk=cfg.chunk_size)
+    kw = dict(pattern=spec.attn_pattern, window=cfg.window, chunk=cfg.chunk_size)
+    if cp:
+        owner, local = divmod(cache_len, lcache["k"].shape[1])
+        if mesh.coords["data"] == owner:
+            lcache["k"][:, local] = kt[:, 0]
+            lcache["v"][:, local] = vt[:, 0]
+        out = cp_decode_attention(q, lcache["k"], lcache["v"], valid, mesh=mesh, axis="data",
+                                  **kw)
+    else:
+        lcache["k"][:, cache_len] = kt[:, 0]
+        lcache["v"][:, cache_len] = vt[:, 0]
+        out = decode_attention(q, lcache["k"], lcache["v"], valid, **kw)
     return x + _attn_out(p, out, cfg, rules)
 
 
@@ -442,17 +536,22 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serve step: next-token logits, and `caches` with the token's k
     and v (attention) or state and conv window (mamba) written in place
-    (C11: raises at ``cache_len >= max_seq`` where there is a KV cache)."""
+    (C11: raises at ``cache_len >= max_seq`` where there is a KV cache).
+    With `shard_kv_seq` on a mesh with a ``data`` axis, `caches` hold this
+    rank's slices of the sequence and decode is context-parallel (the
+    module says how)."""
     period = cfg.period()
     has_attn = any(spec.kind == "attn" for spec in period)
-    if shard_kv_seq and mesh is not None and "data" in mesh.axis_names and has_attn:
-        raise NotImplementedError("context-parallel decode (cp_decode_attention) is not "
-                                  "ported yet (ROADMAP A5)")
+    cp = bool(shard_kv_seq) and mesh is not None and "data" in mesh.axis_names and has_attn
+    if cp and rules.mesh is not None and "data" in entry_axes(rules.pspec("batch")[0]):
+        raise ValueError("context-parallel decode holds the whole batch on every rank; "
+                         "these rules shard it over 'data' (use launch.specs.shape_rules)")
     n = int(cache_len)
+    n_slices = mesh.shape["data"] if cp else 1
     for name, c in caches.items():
         if "k" not in c:
             continue
-        max_seq = c["k"].shape[2]
+        max_seq = n_slices * c["k"].shape[2]
         if not 0 <= n < max_seq:
             raise ValueError(f"cache_len {n} is outside the cache's {max_seq} positions "
                              f"({name}); the reference would overwrite its last slot")
@@ -463,7 +562,7 @@ def decode_step(
             lp = pparams[f"p{i}"]
             lcache = {k: t[j] for k, t in caches[f"p{i}"].items()}
             if spec.kind == "attn":
-                h = _attn_decode(lp, h, lcache, n, spec, cfg, rules)
+                h = _attn_decode(lp, h, lcache, n, spec, cfg, rules, mesh, cp)
             else:
                 xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
                 dh, _ = ssm.mamba_decode_step(lp["mamba"], xn, cfg, rules, lcache)

@@ -52,7 +52,7 @@ def test_presto_vs_disagg_system_level_bytes_on_the_cpu():
             want = sum(((0 if f == "gen" and skip_gen else page_b[f]) + out_b[f]) // 2
                        for f in fams)
             assert r[placement]["bytes"] == {"collective-permute": want, "all-reduce": 0,
-                                             "all-gather": 0}
+                                             "all-gather": 0, "all-to-all": 0}
         assert r["disagg"]["host_families"] == opgraph.FAMILIES
 
 

@@ -21,7 +21,12 @@ why:
   greedy tokens equal;
 * ``cast_weights``: a bf16 copy made once gives bitwise the numbers of a
   cast on every call; the router, ``A_log``, ``D``, ``dt_bias`` and the
-  norms stay f32, as the reference reads them.
+  norms stay f32, as the reference reads them;
+* on a (data=2, model=1) world of CPU ranks (``torch_lm_mesh_ranks.py``):
+  the MoE's all-to-all dispatch against the dense one's rows, and a
+  context-parallel decode step of the reduced jamba against one-device
+  decode, within 1e-5 (``test_torch_lm_mesh.py`` holds both to the
+  reference's meshed runs).
 """
 
 import dataclasses
@@ -42,12 +47,13 @@ from repro.models import transformer as JT
 from repro_torch.configs import registry as PR
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.examples import serve_lm
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, run_spmd
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamDef
+import torch_lm_mesh_ranks as MR
 from torch_lm_util import B, J_RULES, PROMPT, RULES, assert_runs_match, close, run_both, t
 
 ARCHS = ("jamba-v0.1-52b", "mamba2-1.3b", "grok-1-314b", "llama4-maverick-400b-a17b")
@@ -229,18 +235,48 @@ def test_moe_apply(case, monkeypatch):
         assert drops > 0
 
 
-def test_moe_raises_where_the_reference_dispatches_by_all_to_all():
+@pytest.fixture(scope="module")
+def mesh_world(arch_runs):
+    """One (data=2, model=1) world of CPU ranks: a MoE layer dispatched by
+    all-to-all (``MOE_CFG``, experts over ``data``, batch 4) and one
+    context-parallel decode step of the reduced jamba from its prefill
+    caches (100 positions: 50 a rank; position 96 on rank 1)."""
+    tree = numpy_tree(M.moe_schema(MOE_CFG), 9)
+    x = normal(np.random.default_rng(10), 4, 8, MOE_CFG.d_model)
+    _, port = arch_runs["jamba-v0.1-52b"]
+    cp = dict(arch="jamba-v0.1-52b", tree=jax.tree.map(lambda a: a.numpy(), port["params"]),
+              caches=jax.tree.map(lambda a: a.numpy().copy(), port["caches"]),
+              token=np.full((B, 1), 7, np.int32), start=PROMPT, steps=1)
+    world = run_spmd(MR.ssm_moe_rank, (2, 1), ("data", "model"), device="cpu",
+                     args=(dict(cfg_fields=dataclasses.asdict(MOE_CFG), tree=tree, x=x), cp),
+                     timeout=600)
+    return tree, x, world
+
+
+def test_moe_dispatches_by_all_to_all_where_the_reference_does(mesh_world, monkeypatch):
     """Experts over the batch's mesh axis (llama4's rule) on a mesh whose
     data axis divides the experts and the batch: the reference's
-    ``_moe_apply_a2a``, ROADMAP A5."""
+    ``_moe_apply_a2a``.  Each rank's rows equal the dense dispatch's (routing
+    is per batch row), the aux is the mean of the ranks' rows' aux.  A
+    rank's block of one row is a global batch of two, which the axis
+    divides: it takes the all-to-all too, where the reference would
+    dispatch a global batch of one densely."""
+    tree, x, world = mesh_world
+    _, pp = both(tree)
+    out, _ = M.moe_apply(pp, t(x), MOE_CFG, RULES)
+    auxes = [float(M.moe_apply(pp, t(x[i:i + 2]), MOE_CFG, RULES)[1]) for i in (0, 2)]
+    for rank, r in enumerate(world):
+        close(t(r["moe"]["y"]), out[2 * rank:2 * rank + 2])
+        close(torch.tensor(r["moe"]["aux"]), np.mean(auxes))
+        assert r["moe"]["calls"] == 2 and r["moe"]["bytes"] > 0
     mesh = Mesh(shape={"data": 2, "model": 1}, rank=0, device=torch.device("cpu"),
                 transport="gloo")
     rules = ShardingRules.make(mesh, {"experts": "data"})
-    _, pp = both(numpy_tree(M.moe_schema(MOE_CFG), 9))
-    with pytest.raises(NotImplementedError, match="A5"):
-        M.moe_apply(pp, torch.zeros((2, 8, MOE_CFG.d_model)), MOE_CFG, rules)
-    out, _ = M.moe_apply(pp, torch.zeros((1, 8, MOE_CFG.d_model)), MOE_CFG, rules)
-    assert out.shape == (1, 8, MOE_CFG.d_model)  # a batch the axis does not divide
+    taken = []
+    monkeypatch.setattr(M, "_moe_apply_a2a",
+                        lambda *a, axis: taken.append((a[1].shape[0], axis)) or (a[1], None))
+    M.moe_apply(pp, t(x[:1]), MOE_CFG, rules)
+    assert taken == [(1, "data")]
 
 
 # ---------------------------------------------------------------------------
@@ -331,15 +367,24 @@ def test_shard_kv_seq_without_a_data_axis_runs_plain_decode(arch_runs):
     close(got, want)
 
 
-def test_shard_kv_seq_with_a_data_axis_raises_naming_a5(arch_runs):
+def test_shard_kv_seq_with_a_data_axis_decodes_context_parallel(arch_runs, mesh_world):
+    """On a mesh with a ``data`` axis the reference takes
+    ``cp_decode_attention``: each rank's logits equal one-device decode's,
+    and only rank 1, whose slice holds position 96, writes it."""
+    _, port = arch_runs["jamba-v0.1-52b"]
+    plain, plain_c = decode_once(arch_runs, "jamba-v0.1-52b")
+    half = port["caches"]["p4"]["k"].shape[2] // 2
+    for rank, r in enumerate(mesh_world[2]):
+        close(t(r["cp"]["logits"][0]), plain)
+        got = r["cp"]["caches"]["p4"]["k"]
+        want = plain_c["p4"]["k"][:, :, rank * half:(rank + 1) * half].numpy()
+        if rank == 0:
+            assert np.array_equal(got, want)
+        else:
+            close(t(got), want)
+    # a config with no attention position never reaches cp_decode_attention
     mesh = Mesh(shape={"data": 2, "model": 1}, rank=0, device=torch.device("cpu"),
                 transport="gloo")
-    _, port = arch_runs["jamba-v0.1-52b"]
-    kept = port["caches"]["p4"]["k"].clone()
-    with pytest.raises(NotImplementedError, match="A5"):
-        decode_once(arch_runs, "jamba-v0.1-52b", mesh=mesh, shard_kv_seq=True)
-    assert torch.equal(port["caches"]["p4"]["k"], kept)
-    # a config with no attention position never reaches cp_decode_attention
     got, _ = decode_once(arch_runs, "mamba2-1.3b", mesh=mesh, shard_kv_seq=True)
     assert torch.equal(got, decode_once(arch_runs, "mamba2-1.3b")[0])
 

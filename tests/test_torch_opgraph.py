@@ -220,3 +220,18 @@ def test_resolve_placements_modes():
         resolve_placements("warp", spec)
     with pytest.raises(ValueError, match="'isp' or 'host'"):
         resolve_placements({"gen": "gpu"}, spec)
+
+
+def test_spec_tables_and_graph_equal_the_reference(geom):
+    """``TransformSpec.n_tables``, ``table_sizes()`` (bitwise, int64) and
+    ``graph()`` (the node names of ``build_transform_graph``'s graph, as
+    ``tests/test_opgraph.py`` holds the reference's)."""
+    from repro_torch.core.opgraph import build_transform_graph
+
+    spec, jspec = geom["spec"], geom["jspec"]
+    assert spec.n_tables == jspec.n_tables == spec.cfg.n_sparse + spec.cfg.n_generated
+    got, want = spec.table_sizes(), jspec.table_sizes()
+    assert got.dtype == want.dtype == np.int64 and np.array_equal(got, want)
+    names = [n.name for n in spec.graph().nodes]
+    assert names == [n.name for n in jspec.graph().nodes]
+    assert names == [n.name for n in build_transform_graph(spec).nodes]

@@ -268,3 +268,30 @@ def test_dedup_pages_wait_for_a_later_slice():
     want = execute_plan(plan, as_t(pages_from_partition(inflate_partition(part), spec)))
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("dup", [1, 4])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_megabatch_pages_shape_dtypes_stack_the_references(dup, k):
+    """The K-partition stand-ins: the reference's shapes, the port's int32
+    page dtype, and the shapes ``stack_pages`` gives real pages."""
+    from repro.core.preprocess import megabatch_pages_shape_dtypes as j_megabatch
+    from repro.core.preprocess import pages_shape_dtypes as j_pages_shape_dtypes
+    from repro_torch.core.preprocess import (
+        megabatch_pages_shape_dtypes,
+        pages_shape_dtypes,
+        stack_pages,
+    )
+
+    src = SyntheticRecSysSource(RMDataConfig(*SMALL, rows_per_partition=256, dup_factor=dup),
+                                rows=256)
+    jsrc = JSource(JCfg(*SMALL, rows_per_partition=256, dup_factor=dup), rows=256)
+    spec, jspec = TransformSpec.from_source(src), JSpec.from_source(jsrc)
+    got = megabatch_pages_shape_dtypes(spec, 256, k)
+    want = j_megabatch(jspec, 256, k)
+    assert list(got) == list(want) == list(j_pages_shape_dtypes(jspec, 256))
+    for name, sd in got.items():
+        assert sd.shape == tuple(want[name].shape) == (k, *pages_shape_dtypes(spec, 256)[name].shape)
+        assert sd.dtype == torch.int32
+    stacked = stack_pages([pages_from_partition(src.partition(p), spec) for p in range(k)])
+    assert {n: tuple(v.shape) for n, v in stacked.items()} == {n: sd.shape for n, sd in got.items()}
