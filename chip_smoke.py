@@ -124,7 +124,7 @@ just after:
   the card against the port's CPU run (loss, every gradient leaf, one
   update of the full config's optimizer; 1e-4); at full width in bf16 on
   one ``TokenSynthesizer`` batch: h2o-danube-1.8b (4 x 4,096 in 2
-  microbatches, "dots" remat, 5 AdamW then 3 Adafactor steps; the first
+  microbatches, "dots" remat, 3 AdamW then 1 Adafactor step; the first
   step's xent held against the serving forward's), mamba2-1.3b (4 x 4,096,
   AdamW; every gradient finite at chunk 128), seamless-m4t-medium (4 x
   4,096 frames and tokens, AdamW) and one period of jamba-v0.1-52b (bf16
@@ -169,9 +169,11 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -340,23 +342,29 @@ ENCDEC_F32_TOL = 1e-4  # f32 on the card against the CPU, as (a) and (d)
 # card against the CPU (loss, every gradient leaf and one update of the full
 # config's optimizer within 1e-4); at full width in bf16 on one TokenSynthesizer
 # batch, warmup_cosine(*LM_TRAIN_LR): (i) h2o-danube-1.8b, "dots" remat, 4 x
-# 4,096 in 2 microbatches (a step ~11 s, host-bound: ~1.8e5 launches), 5
-# AdamW steps, then 3 Adafactor steps on the weights they left; (j)
+# 4,096 in 2 microbatches (a step ~11 s, host-bound: ~1.8e5 launches),
+# AdamW steps, then Adafactor steps on the weights they left; (j)
 # mamba2-1.3b, 4 x 4,096 ("dots"), AdamW; (k) seamless-m4t-medium, 4 x 4,096
 # frames and tokens, AdamW; (l) one period of jamba-v0.1-52b (8 of 32 layers,
 # bf16 params: with f32 masters the 13.3B parameters and their gradients would
-# not fit), Adafactor, batch 1; (m) launch.train --mode lm with its defaults
+# not fit), Adafactor, batch 1; (m) launch.train --mode lm, its defaults but the steps
+# (m)'s steps: the CLI's other defaults (mamba2-1.3b, 8 x 256); 50, its
+# default, until phase_lm_tp made room for itself
+LM_TRAIN_CLI_STEPS = 10
 LM_TRAIN_PARITY_SEQ = 96  # past h2o's window (64), llama4's chunk and 3 SSD chunks
 LM_TRAIN_LR = (1e-3, 2, 100)
-# a run's steps: a warm-up, the profiled step, then 3 timed ones
-LM_TRAIN_H2O = (4, 4096, 2, 5, 3)  # batch, seq, microbatches, AdamW steps, Adafactor steps
-LM_TRAIN_MAMBA = (4, 4096, 5)  # batch, seq, steps
-LM_TRAIN_ENCDEC = (4, 4096, 5)  # batch, frames (= tokens), steps
+# a run's steps: a warm-up, the profiled step, then the timed ones
+# (3 AdamW and 1 Adafactor steps for (i), 3 for the others: 5, 3 and 5
+# until phase_lm_tp made room for itself; (i)'s first 2 AdamW steps are
+# phase_lm_tp (r)'s witness)
+LM_TRAIN_H2O = (4, 4096, 2, 3, 1)  # batch, seq, microbatches, AdamW steps, Adafactor steps
+LM_TRAIN_MAMBA = (4, 4096, 3)  # batch, seq, steps
+LM_TRAIN_ENCDEC = (4, 4096, 3)  # batch, frames (= tokens), steps
 # seamless at LM_TRAIN_LR's peak of 1e-3 oscillates: 12.98, 14.78, 12.78,
 # 14.35, 14.24 on an H100 (PERF.md §6); a tenth of it, beside the
 # reference's own peak of 3e-4 (launch.specs.make_optimizer_for)
 LM_TRAIN_ENCDEC_LR = (1e-4, 2, 100)
-LM_TRAIN_JAMBA = (1, 4096, 5)  # batch, seq, steps
+LM_TRAIN_JAMBA = (1, 4096, 3)  # batch, seq, steps
 # the held-out xent (the stream's next batch) may sit this far below the
 # stream's unigram entropy: the sampling noise of a mean over 8,192 tokens
 # is ~0.03 nats; a model that sees its labels goes many nats below
@@ -373,19 +381,46 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
 # the meshed LM (phase_lm_mesh), ranks sharing the card over gloo-staged:
 # (n) context-parallel decode of the full h2o-danube-1.8b at long_500k's
 # shape on (data=2): LM_CP_LEN cache positions (16.1 GB of bf16 K/V a rank),
-# filled with seeded values but the last LM_GEN, one draw a LM_CP_BLOCK
+# filled with seeded values but the last LM_MESH_GEN, one draw a LM_CP_BLOCK
 # positions of a layer, so each rank fills its own slice; 2 steps across the
-# slices' border, then LM_GEN at the end of the cache
+# slices' border, then LM_MESH_GEN at the end of the cache
 LM_CP_LEN, LM_CP_BLOCK = 524_288, 65_536
+# the steps (n) decodes at the end of the cache and (o) generates: 32 until
+# phase_lm_tp made room for itself (a decode step there gathers
+# every FSDP weight over data through the host, ~5 s)
+LM_MESH_GEN = 2
 # (o) expert-parallel serving: one period of jamba-v0.1-52b (as (f)) under
 # llama4's expert rule on (data=2, model=1), LM_BATCH rows (2 a rank),
-# LM_PROMPT and LM_GEN generated, held within (f)'s LM_FULL_TOL
+# LM_EP_PROMPT (8,192 until phase_lm_tp made room for itself) and
+# LM_MESH_GEN generated, held within (f)'s LM_FULL_TOL
 LM_EP_RULE = {"experts": "data", "ff": "model"}
 LM_EP_OVERRIDES = {"n_layers": 8, "param_dtype": "bfloat16"}
+LM_EP_PROMPT = 4096
 # (p) expert-parallel training: one meshed step of the reduced llama4 in
 # f32, batch x seq, against the CPU's one-device step over 2 microbatches
 # (the ranks' rows: the same function) within rtol=atol=LM_EP_TRAIN_TOL
 LM_EP_TRAIN, LM_EP_TRAIN_TOL = (4, 128), 1e-5
+# the LM's tensor-parallel and FSDP layout (phase_lm_tp), the reference's
+# GSPMD layout run by ranks sharing the card over gloo-staged, each witness
+# run in this process first and freed before the spawn: (r) h2o-danube-1.8b
+# training at full width on LM_TP_MESH (data, model), bf16 compute, "dots"
+# remat, LM_TP_TRAIN (batch, seq, AdamW steps) against the one-device step
+# over LM_TP_MESH[0] microbatches (the data ranks' rows: the same
+# function): the loss within LM_TP_LOSS_TOL, the gradient norm within
+# LM_TP_NORM_TOL of it, every updated parameter block within 2 lr a step (an
+# AdamW step moves an element by about lr); (s) h2o serving on LM_TP_MESH:
+# prefill of LM_TP_SERVE's batch x prompt under the prefill rules, its decode
+# steps under decode_32k's rules (kv_seq -> model), teacher-forced with the
+# one-device greedy tokens, the logits within LM_BF16_TOL; (t) one
+# jamba-v0.1-52b period (bf16 params) under its default rules on (model=2):
+# LM_TP_JAMBA, the logits within LM_FULL_TOL, the drops equal; (u) the dry
+# run of every production cell
+LM_TP_MESH = (2, 2)
+LM_TP_TRAIN = (4, 4096, 2)
+LM_TP_LOSS_TOL, LM_TP_NORM_TOL = 0.02, 0.01
+LM_TP_SERVE = (4, 8192, 2)
+LM_TP_SAMPLE = 1 << 16  # elements of each parameter block (r) brings back, evenly spaced
+LM_TP_JAMBA = (4, 4096, 16)
 E2E_STEPS = 40  # train_recsys_e2e's steps on the card
 SIM_SEED = 11
 # the meshed paths (phase_mesh): ranks sharing the card, spawned per world
@@ -1490,10 +1525,10 @@ def mesh_pods_rank(mesh, cfg, batch_path: str) -> dict:
     seen = {}  # the gradients each first update received (it scales them in place)
 
     def recording(key):
-        def update(grads, state, params, sq_sum=None):
+        def update(grads, state, params, sq_sum=None, **kw):
             if key not in seen:
                 seen[key] = {k: g.detach().clone() for k, g in grads.items()}
-            return opt.update(grads, state, params, sq_sum)
+            return opt.update(grads, state, params, sq_sum, **kw)
 
         return Optimizer(opt.init, update)
 
@@ -2905,8 +2940,8 @@ def moe_drops():
 
     route, counts = moe._route_block, []
 
-    def counted(xb, router, k, capacity):
-        dispatch, gates, aux = route(xb, router, k, capacity)
+    def counted(xb, router, k, capacity, *rest):
+        dispatch, gates, aux = route(xb, router, k, capacity, *rest)
         counts.append(k - dispatch.sum(dim=(2, 3)))
         return dispatch, gates, aux
 
@@ -3347,10 +3382,10 @@ def timed_optimizer(opt, marks: list):
     """`opt` with CUDA events around each update, appended to `marks`."""
     from repro_torch.train import Optimizer
 
-    def update(grads, state, params, sq_sum=None):
+    def update(grads, state, params, sq_sum=None, **kw):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        out = opt.update(grads, state, params, sq_sum)
+        out = opt.update(grads, state, params, sq_sum, **kw)
         b.record()
         marks.append((a, b))
         return out
@@ -3451,15 +3486,17 @@ def witness_line(tag: str, w: list) -> str:
 
 def lm_train_run(model, loss_fn, opt, batch: dict, steps: int, microbatches: int = 1,
                  profile_at: int | None = 1, heldout: dict | None = None,
-                 wrap=None) -> dict:
+                 wrap=None, after_step=None) -> dict:
     """`steps` train steps of `model` on one batch: each step's metrics,
     the first step's time and the later ones' (CUDA events; the step
     `profile_at`, if any, runs under ``torch.profiler`` instead and gives
     the busy ms, launches and top kernels, and its own time by events),
     each update's ms, the peak device bytes with the state built, and the
     xent on `heldout` after the last step.  `wrap`, if given, wraps the
-    timed optimizer (a witness, outside the update's time).  The state is
-    freed before it returns; the model keeps the trained parameters."""
+    timed optimizer (a witness, outside the update's time); `after_step`,
+    if given, is called with each step's index and metrics once the step
+    has run.  The state is freed before it returns; the model keeps the
+    trained parameters."""
     from repro_torch.train import init_state, make_train_step
 
     opt_marks, marks, metrics = [], [], []
@@ -3486,6 +3523,8 @@ def lm_train_run(model, loss_fn, opt, batch: dict, steps: int, microbatches: int
             marks.append((a, b))
         state, m = box.pop("out")
         metrics.append({k: float(v) for k, v in m.items()})
+        if after_step is not None:
+            after_step(i, metrics[-1])
     torch.cuda.synchronize()
     times = [a.elapsed_time(b) for a, b in marks]
     out = {"metrics": metrics, "losses": [m["loss"] for m in metrics],
@@ -3508,7 +3547,7 @@ def lm_train_run(model, loss_fn, opt, batch: dict, steps: int, microbatches: int
 def lm_train_report(tag: str, cfg, r: dict, tokens: int, mm: int, attn: tuple, card: str,
                     extra: str = "") -> None:
     """Prints a full-width run: losses, step ms (the median of the steps
-    after the warm-up and the profiled one, where there are 3), tok/s, the
+    after the warm-up and the profiled one), tok/s, the
     optimizer's ms, peak bytes, the profiled step's busy ms, launches and
     idle share of its own time, the held-out xent beside the stream's
     entropy, and two FLOP bounds: the function's (6 N T and the attention
@@ -3520,7 +3559,7 @@ def lm_train_report(tag: str, cfg, r: dict, tokens: int, mm: int, attn: tuple, c
 
     fn_bound = (6 * mm * tokens + attn[0]) / BF16_OPS_PER_S * 1e3
     impl_bound = (6 * mm * tokens / BF16_OPS_PER_S + attn[1] / PEAK_OPS_PER_S) * 1e3
-    if len(r["step_ms"]) >= 3:
+    if r["step_ms"]:
         med = statistics.median(r["step_ms"])
         mf = roofline.model_flops(cfg, ShapeConfig(tag, tokens, 1, "train"))
         timing = (f"step {med:.1f} ms (median of {len(r['step_ms'])} after a warm-up step of "
@@ -3611,11 +3650,15 @@ def lm_train_parity(dev) -> None:
               f"CPU run (rtol=atol=1e-4; {time.perf_counter() - t0:.1f} s)")
 
 
-def lm_train_h2o(dev, card: str) -> None:
+def lm_train_h2o(dev, card: str) -> dict:
     """(i): h2o-danube-1.8b at full width, AdamW and then Adafactor on the
     trained weights, every Adafactor update witnessed; the first step's
     xent held against the serving forward's (``prefill_hidden``) on the
-    same tokens."""
+    same tokens.  Its first LM_TP_TRAIN[2] AdamW steps are the one-device
+    witness of ``phase_lm_tp`` (r), the same function (the data ranks'
+    rows as its 2 microbatches): returned, with each step's mean loss over
+    the microbatches, gradient norm, lr and the parameters after it (host
+    copies)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.models import transformer as T
@@ -3637,7 +3680,26 @@ def lm_train_h2o(dev, card: str) -> None:
         del caches
         want = float(T.chunked_xent(model.tree(), h, last["labels"], last["mask"], cfg, rules))
         del h
-    loss_fn = lambda m, x: T.loss_fn(m.tree(), x, cfg, rules)  # noqa: E731
+    mb_losses: list = []  # each microbatch's loss, for (r)'s witness
+
+    def loss_fn(m, x):
+        loss, metrics = T.loss_fn(m.tree(), x, cfg, rules)
+        mb_losses.append(loss.detach())
+        return loss, metrics
+
+    tp_b, tp_s, tp_n = LM_TP_TRAIN
+    check((tp_b, tp_s, LM_TP_MESH[0]) == (b, s, k) and tp_n <= n_adam,
+          "lm train (i): (r)'s witness needs (i)'s batch, microbatches and steps")
+    tp_want: list = []
+
+    def keep_for_tp(i, metrics):
+        if i < tp_n:
+            tp_want.append({"loss": float(torch.stack(mb_losses[-k:]).mean()),
+                            "grad_norm": metrics["grad_norm"], "lr": metrics["lr"],
+                            "params": {n: p.detach().to("cpu", torch.float32, copy=True)
+                                       for n, p in model.named_parameters()}})
+        mb_losses.clear()
+
     mm, _ = matmul_params(cfg, model)
     attn = (attn_flops(cfg, b, s, visited=False), attn_flops(cfg, b, s))
     lr_fn = warmup_cosine(*LM_TRAIN_LR)
@@ -3650,7 +3712,9 @@ def lm_train_h2o(dev, card: str) -> None:
                                                  n_params, witness)
         runs.append(lm_train_run(model, loss_fn, make_optimizer(name, lr_fn), batch, steps,
                                  microbatches=k, profile_at=1 if name == "adamw" else None,
-                                 heldout=heldout, wrap=wrap))
+                                 heldout=heldout, wrap=wrap,
+                                 after_step=keep_for_tp if name == "adamw" else None))
+        mb_losses.clear()
         lm_train_report(f"i, {name}", cfg, runs[-1], b * s, mm, attn, card,
                         f"; {n_params} parameters (f32), bf16 compute, remat {cfg.remat}, "
                         f"{b} x {s} in {k} microbatches")
@@ -3664,9 +3728,11 @@ def lm_train_h2o(dev, card: str) -> None:
           f"{abs(got - want):.3g} (bound {LM_TRAIN_XENT_TOL})")
     check(abs(got - want) <= LM_TRAIN_XENT_TOL,
           f"lm train (i): the first step's xent {got} against the serving forward's {want}")
+    shapes = {n: torch.empty(p.shape, device="meta") for n, p in model.named_parameters()}
     del model, batch, heldout
     gc.collect()
     torch.cuda.empty_cache()
+    return {"cfg": cfg, "want": tp_want, "peak": runs[0]["peak"], "shapes": shapes}
 
 
 def lm_train_useful(cfg, model, loss_fn, batch: dict, k: int) -> None:
@@ -3751,7 +3817,7 @@ def lm_train_full(dev, card: str, tag: str, arch: str, overrides: dict, shape: t
     return r
 
 
-def phase_lm_train(dev) -> None:
+def phase_lm_train(dev) -> dict:
     """LM training (``models.transformer.loss_fn``, ``models.encdec.loss_fn``,
     ``train.optimizer.adafactor``, ``launch.train --mode lm``):
 
@@ -3760,8 +3826,8 @@ def phase_lm_train(dev) -> None:
         the full config's optimizer on the card within rtol=atol=1e-4 of
         the port's CPU run;
     (i) h2o-danube-1.8b at full width, f32 params, bf16 compute, "dots"
-        remat, 4 x 4,096 in 2 microbatches: 5 AdamW steps, then 3
-        Adafactor steps on the weights they left, on one batch, the eight
+        remat, 4 x 4,096 in 2 microbatches: 3 AdamW steps, then 1
+        Adafactor step on the weights they left, on one batch, the
         losses falling (the Adafactor leg's own need not: it starts on a
         batch already learnt); every Adafactor update within bounds of
         ``plain_adafactor`` on every leaf; the first step's xent within
@@ -3776,10 +3842,11 @@ def phase_lm_train(dev) -> None:
         update within bounds of ``plain_adafactor`` on every leaf but the
         expert stacks;
     (m) ``python -m repro_torch.launch.train --mode lm`` with its defaults
-        (mamba2-1.3b, batch 8, seq 256, 50 steps), in process.
+        (mamba2-1.3b, batch 8, seq 256) but LM_TRAIN_CLI_STEPS steps, in
+        process.
 
-    Each full-width run prints its step ms (CUDA events; the median of 3
-    after a warm-up step and a profiled one), tok/s, the optimizer's ms,
+    Each full-width run prints its step ms (CUDA events; the median of the
+    steps after a warm-up step and a profiled one), tok/s, the optimizer's ms,
     peak bytes, the profiled step's launches and idle share of its own time,
     its FLOP bounds, and the xent on the stream's next batch, held not
     below the stream's unigram entropy less LM_TRAIN_HELDOUT_SLACK (the
@@ -3795,7 +3862,7 @@ def phase_lm_train(dev) -> None:
     card = card_line(CARD)
     fused.reset_launches()
     lm_train_parity(dev)
-    lm_train_h2o(dev, card)
+    h2o_witness = lm_train_h2o(dev, card)
     lm_train_full(dev, card, "j", "mamba2-1.3b", {}, LM_TRAIN_MAMBA, "adamw")
     lm_train_full(dev, card, "k", "seamless-m4t-medium", {}, LM_TRAIN_ENCDEC, "adamw",
                   LM_TRAIN_ENCDEC_LR)
@@ -3806,12 +3873,13 @@ def phase_lm_train(dev) -> None:
     buf = io.StringIO()
     t0 = time.perf_counter()
     with redirect_stdout(buf):
-        out = t_train.main(["--mode", "lm"])
+        out = t_train.main(["--mode", "lm", "--steps", str(LM_TRAIN_CLI_STEPS)])
     lines = buf.getvalue().splitlines()
-    print(f"lm train (m): python -m repro_torch.launch.train --mode lm: " + " | ".join(lines)
-          + f" ({time.perf_counter() - t0:.1f} s)")
-    check(len(lines) == 2 and lines[0].startswith("lm mamba2-1.3b: 50 steps in ")
-          and len(out["losses"]) == 50 and all(np.isfinite(out["losses"]))
+    print(f"lm train (m): python -m repro_torch.launch.train --mode lm --steps "
+          f"{LM_TRAIN_CLI_STEPS}: " + " | ".join(lines) + f" ({time.perf_counter() - t0:.1f} s)")
+    check(len(lines) == 2
+          and lines[0].startswith(f"lm mamba2-1.3b: {LM_TRAIN_CLI_STEPS} steps in ")
+          and len(out["losses"]) == LM_TRAIN_CLI_STEPS and all(np.isfinite(out["losses"]))
           and out["last_loss"] < out["first_loss"], f"lm train (m): {lines}")
     launched = {k: v for k, v in fused.LAUNCHES.items() if v}
     check(not launched, f"lm train: LM training launched {launched}")
@@ -3822,6 +3890,7 @@ def phase_lm_train(dev) -> None:
 # ---------------------------------------------------------------------------
 # the meshed LM (phase_lm_mesh): rank programs are module-level, as
 # phase_mesh's, and take numpy
+    return h2o_witness
 
 
 def cp_fill(t: torch.Tensor, layer: int, kv: int, first: int, fill: int) -> None:
@@ -3860,7 +3929,7 @@ def cp_caches(cfg, dev, first: int, length: int) -> dict:
     caches = T.init_cache(cfg, 1, length, dev)
     for j in range(cfg.n_periods):
         for kv, name in enumerate(("k", "v")):
-            cp_fill(caches["p0"][name][j], j, kv, first, LM_CP_LEN - LM_GEN)
+            cp_fill(caches["p0"][name][j], j, kv, first, LM_CP_LEN - LM_MESH_GEN)
     return caches
 
 
@@ -3879,7 +3948,7 @@ def cp_decode_run(served, caches, cfg, rules, tokens, lens, mesh=None) -> dict:
     host ms in the collectives."""
     from repro_torch.models import transformer as T
 
-    out = {"logits": [], "ms": [], "bytes": [], "calls": [], "coll_ms": []}
+    out = {"logits": [], "ms": [], "bytes": [], "calls": [], "gathers": [], "coll_ms": []}
     for tok, n in zip(tokens, lens):
         if mesh is not None:
             mesh.counter.reset()
@@ -3891,9 +3960,11 @@ def cp_decode_run(served, caches, cfg, rules, tokens, lens, mesh=None) -> dict:
         b.synchronize()
         out["ms"].append(a.elapsed_time(b))
         out["logits"].append(logits[:, -1].float().cpu().numpy())
-        if mesh is not None:
-            out["bytes"].append(sum(mesh.counter.bytes.values()))
-            out["calls"].append(sum(mesh.counter.calls.values()))
+        if mesh is not None:  # the combine's all-reduces; the FSDP gathers apart
+            out["bytes"].append(mesh.counter.bytes["all-reduce"])
+            out["calls"].append(mesh.counter.calls["all-reduce"])
+            out["gathers"].append((mesh.counter.calls["all-gather"],
+                                   mesh.counter.bytes["all-gather"]))
             out["coll_ms"].append(sum(mesh.counter.seconds.values()) * 1e3)
     return out
 
@@ -3912,6 +3983,8 @@ def cp_mesh_rank(mesh, tokens, lens, cross: int) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     cfg, served = cp_model(dev)
     rules = shape_rules(cfg, SHAPES["long_500k"], mesh)
+    served = T.rank_params(served, cfg, rules)  # FSDP: the rank's rows of each weight
+    gather_want = fsdp_reads(served, T.flat_rank_param_pspecs(cfg, rules), cfg)
     n = mesh.shape["data"]
     s_local = LM_CP_LEN // n
     first = mesh.coords["data"] * s_local
@@ -3934,7 +4007,23 @@ def cp_mesh_rank(mesh, tokens, lens, cross: int) -> dict:
     except ValueError as e:
         c11 = str(e)
     return dict(r, probes=probes, c11=c11, fill_s=fill_s, s_local=s_local,
-                peak=torch.cuda.max_memory_allocated(dev), launches=dict(fused.LAUNCHES))
+                gather_want=gather_want, peak=torch.cuda.max_memory_allocated(dev),
+                launches=dict(fused.LAUNCHES))
+
+
+def fsdp_reads(params: dict, specs: dict, cfg) -> tuple:
+    """(calls, bytes) of the FSDP gathers a forward makes: each leaf split
+    over ``data`` gathered once a period (once for a top-level leaf), the
+    rank's block of it in its dtype."""
+    from repro_torch.distributed.sharding import spec_axes
+
+    calls = nbytes = 0
+    for name, t in flat_tree(params).items():
+        if "data" in spec_axes(specs[name]):
+            calls += cfg.n_periods if name.startswith("layers.") else 1
+            nbytes += t.numel() * t.element_size()
+    return calls, nbytes
+
 
 
 def lm_cp(dev, card: str) -> list:
@@ -3955,9 +4044,9 @@ def lm_cp(dev, card: str) -> list:
     fill_s = time.perf_counter() - t0
     cache_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(caches))
     # greedy from a seeded token: 2 steps across the slices' border, then
-    # LM_GEN steps at the end of the cache
+    # LM_MESH_GEN steps at the end of the cache
     runs = []
-    for lens in ([s_local - 1, s_local], list(range(LM_CP_LEN - LM_GEN, LM_CP_LEN))):
+    for lens in ([s_local - 1, s_local], list(range(LM_CP_LEN - LM_MESH_GEN, LM_CP_LEN))):
         tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 1)).astype(np.int32)).to(dev)
         toks, r = [], {"logits": [], "ms": []}
         for n in lens:
@@ -4006,7 +4095,7 @@ def lm_cp(dev, card: str) -> list:
     owned = sorted(p for r in ranks for p in r["probes"])
     print(f"lm mesh (n) {cfg.name}: context-parallel decode at long_500k's shape, {n_ranks} ranks "
           f"on {dev} ({transport}), batch 1, {LM_CP_LEN} positions ({cache_bytes} bytes of bf16 "
-          f"K/V; {ranks[0]['s_local']} a rank), filled to {LM_CP_LEN - LM_GEN} in "
+          f"K/V; {ranks[0]['s_local']} a rank), filled to {LM_CP_LEN - LM_MESH_GEN} in "
           f"{fill_s:.2f} s (one device) and {[round(r['fill_s'], 2) for r in ranks]} s (ranks); "
           f"steps at cache_len {lens[:cross]} (across the border) and {lens[cross]}..{lens[-1]}; "
           f"step ms, median: ranks {[round(statistics.median(r['ms'][cross:]), 4) for r in ranks]}"
@@ -4015,10 +4104,12 @@ def lm_cp(dev, card: str) -> list:
           f"{[round(statistics.median(r['coll_ms'][cross:]), 4) for r in ranks]}; one device's "
           f"step under the profiler {prof[0]:.4f} ms busy in {prof[1]} launches, top {prof[2]}; "
           f"peak bytes {[r['peak'] for r in ranks]} a rank, one device {peak}; "
-          f"collective bytes a step {sorted({b for r in ranks for b in r['bytes']})} in calls "
+          f"all-reduce bytes a step {sorted({b for r in ranks for b in r['bytes']})} in calls "
           f"{sorted({c for r in ranks for c in r['calls']})} a rank (want {want_bytes} in "
-          f"{3 * n_attn}); {free} bytes free before the spawn; the world {wall:.1f} s; card "
-          f"{card}")
+          f"{3 * n_attn}), FSDP gathers (calls, bytes) a step "
+          f"{sorted({g for r in ranks for g in r['gathers']})} (want "
+          f"{tuple(ranks[0]['gather_want'])}); {free} bytes free before the spawn; the world "
+          f"{wall:.1f} s; card {card}")
     print(f"lm mesh (n): logits against the one-device decode over the whole cache: max |diff| "
           f"{max(errs):.4g} (bound {LM_BF16_TOL}; by step {[round(e, 4) for e in errs]}); ranks "
           f"bitwise equal: {same}; greedy tokens equal where the margin passes the bound: "
@@ -4031,8 +4122,10 @@ def lm_cp(dev, card: str) -> list:
     check(probes_ok and owned == sorted(cp_positions(s_local)),
           f"lm mesh (n): a write landed on the wrong rank ({owned})")
     check(all(b == want_bytes for r in ranks for b in r["bytes"])
-          and all(c == 3 * n_attn for r in ranks for c in r["calls"]),
-          f"lm mesh (n): collective bytes {ranks[0]['bytes'][:3]} calls {ranks[0]['calls'][:3]}")
+          and all(c == 3 * n_attn for r in ranks for c in r["calls"])
+          and all(g == tuple(r["gather_want"]) for r in ranks for g in r["gathers"]),
+          f"lm mesh (n): all-reduce bytes {ranks[0]['bytes'][:3]} calls {ranks[0]['calls'][:3]}, "
+          f"gathers {ranks[0]['gathers'][:3]} (want {ranks[0]['gather_want']})")
     check(all(r["c11"] and f"outside the cache's {LM_CP_LEN}" in r["c11"] for r in ranks),
           f"lm mesh (n): C11 at {LM_CP_LEN}: {[r['c11'] for r in ranks]}")
     return [r["launches"] for r in ranks]
@@ -4047,7 +4140,7 @@ def ep_config():
 
 
 def ep_serve(served, cfg, rules, prompts, tokens, mesh=None) -> dict:
-    """Prefill `prompts` and decode teacher-forced with `tokens` (B, LM_GEN;
+    """Prefill `prompts` and decode teacher-forced with `tokens` (B, LM_MESH_GEN;
     `tokens[:, 0]` the prefill's own greedy token when None): the prefill's
     last logits and each step's (f32 numpy), prefill ms, step ms, dropped
     choices of the prefill and of decode, and on a mesh the all-to-all
@@ -4058,7 +4151,7 @@ def ep_serve(served, cfg, rules, prompts, tokens, mesh=None) -> dict:
     with moe_drops() as counts:
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        logits, caches = T.prefill(served, prompts, cfg, rules, LM_PROMPT + LM_GEN)
+        logits, caches = T.prefill(served, prompts, cfg, rules, LM_EP_PROMPT + LM_MESH_GEN)
         b.record()
         b.synchronize()
         out["prefill_ms"] = a.elapsed_time(b)
@@ -4066,14 +4159,14 @@ def ep_serve(served, cfg, rules, prompts, tokens, mesh=None) -> dict:
         out["prefill_drops"] = total_drops(counts)
         n_prefill = len(counts)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-        for i in range(LM_GEN - 1):
+        for i in range(LM_MESH_GEN - 1):
             if tokens is not None:
                 tok = tokens[:, i:i + 1]
             if mesh is not None:
                 mesh.counter.reset()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            logits, caches = T.decode_step(served, tok, caches, LM_PROMPT + i, cfg, rules,
+            logits, caches = T.decode_step(served, tok, caches, LM_EP_PROMPT + i, cfg, rules,
                                            mesh=mesh)
             b.record()
             b.synchronize()
@@ -4112,18 +4205,14 @@ def ep_mesh_rank(mesh, prompts, tokens) -> dict:
                 weight_bytes=weight_bytes, launches=dict(fused.LAUNCHES))
 
 
-def lm_ep(dev, card: str) -> list:
-    """(o): the one-device dense dispatch, then the (data=2, model=1)
-    world dispatching by all-to-all; returns the ranks' kernel launch
-    counts."""
+def lm_ep_witness(dev) -> dict:
+    """(o)'s witness: the one-device dense dispatch, its greedy tokens."""
     from repro_torch.distributed.sharding import ShardingRules
-    from repro_torch.launch.mesh import choose_transport, rank_devices, run_spmd
-    from repro_torch.models import moe
     from repro_torch.models import transformer as T
 
     cfg = ep_config()
     rng = np.random.default_rng(LM_SEED + 17)
-    prompts = rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    prompts = rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_EP_PROMPT)).astype(np.int32)
     torch.cuda.reset_peak_memory_stats()
     served = T.cast_weights(T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev), cfg)
     want = ep_serve(served, cfg, ShardingRules.make(None), torch.from_numpy(prompts).to(dev),
@@ -4136,11 +4225,16 @@ def lm_ep(dev, card: str) -> list:
     tokens = np.concatenate([want["prefill"].argmax(-1)[:, None]]
                             + [lg.argmax(-1)[:, None] for lg in want["logits"][:-1]],
                             axis=1).astype(np.int32)
-    free = torch.cuda.mem_get_info()[0]
-    t1 = time.perf_counter()
-    ranks = run_spmd(ep_mesh_rank, (2, 1), ("data", "model"), device=dev,
-                     args=(prompts, tokens), timeout=900)
-    wall = time.perf_counter() - t1
+    return {"cfg": cfg, "want": want, "peak": peak, "prompts": prompts, "tokens": tokens}
+
+
+def lm_ep_check(w: dict, ranks: list, dev, card: str, free: int, wall: float) -> list:
+    """(o)'s holds on the (data=2, model=1) world dispatching by
+    all-to-all; returns the ranks' kernel launch counts."""
+    from repro_torch.launch.mesh import choose_transport, rank_devices
+    from repro_torch.models import moe
+
+    cfg, want, peak = w["cfg"], w["want"], w["peak"]
     half = LM_BATCH // 2
     tol = LM_FULL_TOL["jamba-v0.1-52b"]
     errs, agree, clear = [], [], []
@@ -4162,7 +4256,7 @@ def lm_ep(dev, card: str) -> list:
                 * cfg.n_experts * moe.capacity_of(1, cfg) * cfg.d_model * 2)
     print(f"lm mesh (o) {cfg.name}: one period ({cfg.n_layers} layers) under the expert rule "
           f"{LM_EP_RULE}, (data=2, model=1) on {dev} ({transport}), {e_local} experts a rank, "
-          f"batch {LM_BATCH} ({half} a rank), prompt {LM_PROMPT}, {LM_GEN} generated: prefill "
+          f"batch {LM_BATCH} ({half} a rank), prompt {LM_EP_PROMPT}, {LM_MESH_GEN} generated: prefill "
           f"s {[round(r['prefill_ms'] / 1e3, 4) for r in ranks]} (ranks), "
           f"{want['prefill_ms'] / 1e3:.4f} (one device, dense); decode ms a step, median "
           f"{[round(statistics.median(r['ms']), 4) for r in ranks]} (ranks), "
@@ -4170,8 +4264,8 @@ def lm_ep(dev, card: str) -> list:
           f"all-to-all bytes a decode step a rank {a2a} (want {want_a2a}); weights "
           f"{[r['weight_bytes'] for r in ranks]} bytes a rank, built in "
           f"{[round(r['init_s'], 1) for r in ranks]} s; peak {[r['peak'] for r in ranks]} bytes "
-          f"a rank, one device {peak}; {free} bytes free before the spawn; the world "
-          f"{wall:.1f} s; card {card}")
+          f"a rank, one device {peak}; {free} bytes free before the spawn; the world of (o) "
+          f"and (p) {wall:.1f} s; card {card}")
     print(f"lm mesh (o): logits against the one-device dense dispatch: max |diff| "
           f"{[round(e, 5) for e in errs]} by rank (bound {tol}); greedy tokens equal "
           f"{sum(agree)} of {len(agree)} steps and ranks, where the margin passes the bound "
@@ -4187,6 +4281,15 @@ def lm_ep(dev, card: str) -> list:
     return [r["launches"] for r in ranks]
 
 
+def ep_both_rank(mesh, prompts, tokens, tree, batch) -> dict:
+    """(o), then (p), on one rank of one (data=2, model=1) world."""
+    out = {"o": ep_mesh_rank(mesh, prompts, tokens)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["p"] = ep_train_rank(mesh, tree, batch)
+    return out
+
+
 def ep_train_inputs(cfg) -> dict:
     b, s = LM_EP_TRAIN
     toks = np.random.default_rng(LM_SEED + 19).integers(1, cfg.vocab_size, (b, s + 1))
@@ -4196,12 +4299,14 @@ def ep_train_inputs(cfg) -> dict:
 
 def ep_train_step(cfg, model, rules, **kw):
     from repro_torch.models import transformer as T
-    from repro_torch.train import init_state, make_optimizer, make_train_step, warmup_cosine
+    from repro_torch.train import (Layout, init_state, make_optimizer, make_train_step,
+                                   warmup_cosine)
 
     opt = make_optimizer("adamw", warmup_cosine(*LM_TRAIN_LR))
     step = make_train_step(lambda m, b: T.loss_fn(m.tree(), b, cfg, rules), opt, rules=rules,
                            **kw)
-    return step, init_state(model, opt)
+    layout = None if rules.mesh is None else Layout(rules.mesh, kw["param_specs"])
+    return step, init_state(model, opt, layout=layout)
 
 
 def ep_train_rank(mesh, tree, batch) -> dict:
@@ -4215,6 +4320,7 @@ def ep_train_rank(mesh, tree, batch) -> dict:
 
     dev = mesh.device
     fused.reset_launches()
+    mesh.counter.reset()
     cfg = get_arch("llama4-maverick-400b-a17b").reduced
     rules = ShardingRules.make(mesh, LM_EP_RULE)
     model = ParamTree(T.rank_params(T.params_from_numpy(tree, cfg, dev), cfg, rules))
@@ -4230,14 +4336,10 @@ def ep_train_rank(mesh, tree, batch) -> dict:
             "launches": dict(fused.LAUNCHES)}
 
 
-def lm_ep_train(dev, card: str) -> list:
-    """(p): the CPU's one-device step over 2 microbatches, then the world;
-    returns the ranks' kernel launch counts."""
-    import types
-
+def lm_ep_train_witness() -> dict:
+    """(p)'s witness: the CPU's one-device step over 2 microbatches."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.distributed.sharding import ShardingRules, shard
-    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import ParamTree
 
@@ -4253,10 +4355,18 @@ def lm_ep_train(dev, card: str) -> list:
         losses = [float(T.loss_fn(model.tree(), {k: v[i:i + half] for k, v in cpu_batch.items()},
                                   cfg, rules)[0]) for i in (0, half)]
     _, metrics = step(state, cpu_batch)
-    t1 = time.perf_counter()
-    ranks = run_spmd(ep_train_rank, (2, 1), ("data", "model"), device=dev, args=(tree, batch),
-                     timeout=600)
-    wall = time.perf_counter() - t1
+    return {"cfg": cfg, "tree": tree, "batch": batch, "model": model, "metrics": metrics,
+            "losses": losses}
+
+
+def lm_ep_train_check(w: dict, ranks: list, dev, card: str, wall: float) -> list:
+    """(p)'s holds on the world's expert-parallel step; returns the ranks'
+    kernel launch counts."""
+    import types
+
+    from repro_torch.distributed.sharding import shard, spec_axes
+
+    cfg, model, metrics, losses = w["cfg"], w["model"], w["metrics"], w["losses"]
     errs = {"loss": abs(ranks[0]["metrics"]["loss"] - float(np.mean(losses))),
             "grad_norm": abs(ranks[0]["metrics"]["grad_norm"] - float(metrics["grad_norm"]))}
     worst = {"grads": 0.0, "params": 0.0}
@@ -4272,7 +4382,8 @@ def lm_ep_train(dev, card: str) -> list:
                 g = r[key][name]
                 worst[key] = max(worst[key], float(np.abs(g - w).max()))
                 ok &= bool(np.allclose(g, w, rtol=LM_EP_TRAIN_TOL, atol=LM_EP_TRAIN_TOL))
-    split = sorted({n for r in ranks for n, sp in r["specs"].items() if any(sp)})
+    split = sorted({n for r in ranks for n, g in r["grads"].items()
+                    if g.shape != tuple(named[n].shape)})
     print(f"lm mesh (p) {cfg.name}: one meshed AdamW step under {LM_EP_RULE}, f32, "
           f"{LM_EP_TRAIN[0]} x {LM_EP_TRAIN[1]} on (data=2, model=1) on {dev}, against the "
           f"CPU's one-device step over 2 microbatches (the ranks' rows): loss "
@@ -4280,10 +4391,13 @@ def lm_ep_train(dev, card: str) -> list:
           f"{errs['loss']:.3g}), grad_norm |diff| {errs['grad_norm']:.3g}; max |diff| of every "
           f"gradient block {worst['grads']:.3g}, of the updated parameters "
           f"{worst['params']:.3g} (rtol=atol={LM_EP_TRAIN_TOL}); the split leaves {split}; "
-          f"all-to-all calls a rank {[r['a2a'] for r in ranks]}; the world {wall:.1f} s; card "
+          f"all-to-all calls a rank {[r['a2a'] for r in ranks]}; the world of (o) and (p) "
+          f"{wall:.1f} s; card "
           f"{card}")
     check(ok and errs["loss"] <= LM_EP_TRAIN_TOL, f"lm mesh (p): {errs}, {worst}")
-    check(len(split) == 6 and all(r["a2a"] == 8 for r in ranks),
+    want_split = sorted(n for n, sp in ranks[0]["specs"].items() if "data" in spec_axes(sp))
+    check(split == want_split and any(n.endswith("w_gate") for n in split)
+          and all(r["a2a"] == 8 for r in ranks),
           f"lm mesh (p): split {split}, all-to-alls {[r['a2a'] for r in ranks]}")
     return [r["launches"] for r in ranks]
 
@@ -4300,12 +4414,12 @@ def phase_lm_mesh(dev) -> None:
         shape (batch 1, LM_CP_LEN positions) on (data=2), each rank filling
         its own slice: 2 steps across the slices' border (the writes land
         on the owning rank, layer 0's k bitwise the one-device cache's),
-        then LM_GEN steps at the end of the cache, teacher-forced with the
+        then LM_MESH_GEN steps at the end of the cache, teacher-forced with the
         one-device decode's greedy tokens, the logits within LM_BF16_TOL,
         the ranks' bitwise equal, one pmax and two psums an attention layer,
         C11 at the global length;
     (o) expert-parallel serving: one period of jamba-v0.1-52b under llama4's
-        expert rule on (data=2, model=1), LM_BATCH x LM_PROMPT, LM_GEN
+        expert rule on (data=2, model=1), LM_BATCH x LM_EP_PROMPT, LM_MESH_GEN
         generated, against the one-device dense dispatch: logits within
         (f)'s bound, the drops equal, the all-to-all bytes a decode step;
     (p) expert-parallel training: one meshed AdamW step of the reduced
@@ -4313,20 +4427,519 @@ def phase_lm_mesh(dev) -> None:
         (the same function), every gradient block and updated parameter
         within LM_EP_TRAIN_TOL.
 
-    None of the eight kernels is launched, by the witnesses in this process
-    or by any rank."""
+    (o) and (p) run in one world, one after the other (one spawn).  None of
+    the eight kernels is launched, by the witnesses in this process or by
+    any rank."""
     from repro_torch.kernels import fused
 
     t0 = time.perf_counter()
     card = card_line(CARD)
     fused.reset_launches()
-    counts = lm_cp(dev, card) + lm_ep(dev, card) + lm_ep_train(dev, card)
+    from repro_torch.launch.mesh import run_spmd
+
+    counts = lm_cp(dev, card)
+    o, p = lm_ep_witness(dev), lm_ep_train_witness()
+    free, t1 = torch.cuda.mem_get_info()[0], time.perf_counter()
+    ranks = run_spmd(ep_both_rank, (2, 1), ("data", "model"), device=dev,
+                     args=(o["prompts"], o["tokens"], p["tree"], p["batch"]), timeout=900)
+    wall = time.perf_counter() - t1
+    counts += (lm_ep_check(o, [r["o"] for r in ranks], dev, card, free, wall)
+               + lm_ep_train_check(p, [r["p"] for r in ranks], dev, card, wall))
     counts.append(dict(fused.LAUNCHES))
     launched = {k: sum(c.get(k, 0) for c in counts) for k in fused.LAUNCHES}
     launched = {k: v for k, v in launched.items() if v}
     check(not launched, f"lm mesh: the meshed LM launched {launched}")
     print(f"lm mesh: none of the eight kernels launched, by the witnesses or by the "
           f"{len(counts) - 1} rank runs of (n)-(p); {time.perf_counter() - t0:.1f} s in all; "
+          f"card {card}")
+
+
+# ---------------------------------------------------------------------------
+# the LM's tensor-parallel and FSDP layout (phase_lm_tp): rank programs are
+# module-level and take numpy
+
+
+def tp_shapes(b: int, s: int, max_seq: int) -> dict:
+    from repro_torch.models.config import ShapeConfig
+
+    return {"train": ShapeConfig("lm_tp_train", s, b, "train"),
+            "prefill": ShapeConfig("lm_tp_prefill", s, b, "prefill"),
+            "decode": ShapeConfig("lm_tp_decode", max_seq, b, "decode")}
+
+
+def tp_train_model(cfg, dev, rules):
+    """h2o's seeded model as this rank's blocks under meshed `rules`, its
+    AdamW, its state (the reference's layout) and the blocks' specs."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.train import Layout, init_state, make_optimizer, warmup_cosine
+
+    model = ParamTree(T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev,
+                                    rules=rules))
+    opt = make_optimizer("adamw", warmup_cosine(*LM_TRAIN_LR))
+    specs = T.flat_rank_param_pspecs(cfg, rules)
+    return model, opt, init_state(model, opt, layout=Layout(rules.mesh, specs)), specs
+
+
+def tp_sample(t: torch.Tensor) -> torch.Tensor:
+    """Every k-th element of `t` flattened, k = numel // LM_TP_SAMPLE (at
+    least 1), as an f32 host copy: a block's sample that a witness takes
+    from the same block of its own tensor."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // LM_TP_SAMPLE)].to("cpu", torch.float32, copy=True)
+
+
+def tp_train_steps(step, state, batch: dict, model, n: int, mesh) -> list:
+    """`n` meshed steps: each one's loss (the mean over the batch axes),
+    grad norm, lr, ms (CUDA events), collective bytes, calls and host
+    seconds, and the parameter blocks' samples after it (``tp_sample``)."""
+    out = []
+    for _ in range(n):
+        mesh.counter.reset()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        b.synchronize()
+        out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "lr": float(m["lr"]), "ms": a.elapsed_time(b),
+                    "bytes": dict(mesh.counter.bytes), "calls": dict(mesh.counter.calls),
+                    "coll_s": sum(mesh.counter.seconds.values()),
+                    "params": {k: tp_sample(p).numpy() for k, p in model.named_parameters()}})
+    return out
+
+
+def tp_train_rank(mesh) -> dict:
+    """(r) on one rank: its blocks of h2o, its rows of the batch, the
+    meshed steps."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.kernels import fused
+    from repro_torch.launch.specs import shape_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+
+    dev = mesh.device
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH).config
+    b, s, n = LM_TP_TRAIN
+    rules = shape_rules(cfg, tp_shapes(b, s, s)["train"], mesh)
+    model, opt, state, specs = tp_train_model(cfg, dev, rules)
+    step = make_train_step(lambda m, x: T.loss_fn(m.tree(), x, cfg, rules), opt, rules=rules,
+                           param_specs=specs)
+    rows = (*rules.pspec("batch"), None)
+    batch = {k: shard(v, mesh, rows).to(dev)
+             for k, v in lm_train_inputs(cfg, b, s, torch.device("cpu")).items()}
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    steps = tp_train_steps(step, state, batch, model, n, mesh)
+    return {"steps": steps, "setup_s": setup_s, "specs": specs, "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": dict(fused.LAUNCHES)}
+
+
+def tp_train_comm(cfg, rows: int, seq: int, mesh_shape: tuple, params: dict) -> dict:
+    """The collectives one meshed train step of the dense decoder should
+    make on a rank, (calls, bytes) by kind, from the layout alone.  Remat
+    "dots": the backward recomputes each period's forward up to the last
+    tensor it saved (``torch.utils.checkpoint`` stops early), so the
+    weights' gathers and the attention's sum run twice and the MLP's sum,
+    whose output only the next period reads, once; the cross-entropy's
+    blocks ("full" remat) run twice.  `params` are the global parameters'
+    shapes by dotted name (meta tensors)."""
+    from repro_torch.distributed.sharding import ShardingRules, entry_axes, spec_axes
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_optimizer
+    from repro_torch.train.step import natural_opt_specs, opt_state_pspecs
+
+    data, model = mesh_shape
+    mesh = meta_mesh({"data": data, "model": model})
+    rules = ShardingRules.make(mesh, dict(cfg.sharding_overrides))
+    specs = T.flat_rank_param_pspecs(cfg, rules)
+    d, L, bf16, f32 = cfg.d_model, cfg.n_periods, 2, 4
+    tok = rows * seq
+    blk = min(1024, seq)
+    nb = seq // blk
+    vocab = cfg.padded_vocab // model
+    layer = sum(math.prod(t.shape[1:]) // (data * model) for n, t in params.items()
+                if n.startswith("layers.") and "data" in spec_axes(specs[n]))
+    n_fsdp = sum(1 for n in params if n.startswith("layers.") and "data" in spec_axes(specs[n]))
+    head = d // data * vocab
+    ag_calls, ag_bytes = 2 * n_fsdp * L + 2 * nb, (2 * L * layer + 2 * nb * head) * bf16
+    # the optimizer state's leaves that the reference lays out by another
+    # parameter's spec go to their own parameter's layout and back
+    opt = make_optimizer("adamw", lambda step: torch.zeros(()))
+    ref = flat_tree(opt_state_pspecs(opt, params, specs))
+    nat = flat_tree(natural_opt_specs(opt, params, specs))
+    for name, src in ref.items():
+        if tuple(src) == tuple(nat[name]):
+            continue
+        shape = list(params[name.split(".", 1)[1]].shape)
+        for spec_a, spec_b in ((src, nat[name]), (nat[name], src)):
+            cur = [n // math.prod(mesh.shape[a] for a in entry_axes(e)) for n, e in
+                   zip(shape, spec_a)]
+            for dim, (ea, eb) in enumerate(zip(spec_a, spec_b)):
+                if entry_axes(ea) == entry_axes(eb):
+                    continue
+                for axis in reversed(entry_axes(ea)):
+                    if mesh.shape[axis] > 1:
+                        ag_calls += 1
+                        ag_bytes += math.prod(cur) * f32
+                        cur[dim] *= mesh.shape[axis]
+    small = [n for n in params if "data" not in spec_axes(specs[n])]
+    groups = {tuple(spec_axes(sp)) for sp in specs.values()}
+    ar_calls = (3 * L + 1 + 6 * nb) + (2 * L + n_fsdp * L + 2 * nb) + len(small) + sum(
+        len(g) for g in groups) + 1
+    ar_bytes = ((3 * L + 1) * tok * d * bf16 + 6 * nb * rows * blk * f32
+                + 2 * L * tok * d * bf16 + L * data * layer * bf16
+                + nb * rows * blk * d * bf16 + nb * d * vocab * bf16
+                + sum(math.prod(params[n].shape) // model ** ("model" in spec_axes(specs[n]))
+                      for n in small) * f32
+                + (sum(len(g) for g in groups) + 1) * f32)
+    return {"all-gather": (ag_calls, ag_bytes), "all-reduce": (ar_calls, ar_bytes)}
+
+
+def meta_mesh(shape: dict, rank: int = 0):
+    """Rank `rank`'s view of a mesh of `shape` with no world behind it."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(dict(shape), rank, torch.device("meta"), "none")
+
+
+def flat_tree(tree, path: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{path}.{k}" if path else k
+        out.update(flat_tree(v, name) if isinstance(v, dict) else {name: v})
+    return out
+
+
+def lm_tp_train_check(w: dict, ranks: list, dev, card: str, free: int, wall: float) -> list:
+    """(r)'s holds on the world's `ranks` against the witness `w`; returns
+    the ranks' kernel launch counts."""
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.launch.mesh import choose_transport, rank_devices
+
+    cfg, want, peak = w["cfg"], w["want"], w["peak"]
+    b, s, n = LM_TP_TRAIN
+    transport = choose_transport(rank_devices(math.prod(LM_TP_MESH), dev))
+    comm = tp_train_comm(cfg, b // LM_TP_MESH[0], s, LM_TP_MESH, w["shapes"])
+    # an AdamW step moves an element by at most lr (|m^ / sqrt(v^)| <= 1 on
+    # the first step, about 1 on the next), so two runs' parameters part by
+    # at most 2 lr a step, beside the f32 rounding of p + update on each side
+    top = max(float(v.abs().max()) for v in want[0]["params"].values())
+    bound, worst, ok = 2 * 2.0 ** -23 * top, [], True
+    for i, w in enumerate(want):
+        bound += 2 * w["lr"]
+        err = 0.0
+        for rank, r in enumerate(ranks):
+            mesh = meta_mesh(dict(zip(("data", "model"), LM_TP_MESH)), rank)
+            for name, got in r["steps"][i]["params"].items():
+                want_block = tp_sample(shard(w["params"][name], mesh, r["specs"][name]))
+                err = max(err, float(np.abs(got - want_block.numpy()).max()))
+        worst.append(err)
+        ok &= err <= bound
+    for r in [*want, *(st for r in ranks for st in r["steps"])]:
+        del r["params"]
+    got = [[st["loss"] for st in r["steps"]] for r in ranks]
+    norms = [[st["grad_norm"] for st in r["steps"]] for r in ranks]
+    w_loss = [w["loss"] for w in want]
+    print(f"lm tp (r) {cfg.name}: training at full width on {LM_TP_MESH} (data, model) on {dev} "
+          f"({transport}), {b} x {s}, bf16 compute, remat {cfg.remat}, {n} AdamW steps: step ms "
+          f"{[[round(st['ms'], 1) for st in r['steps']] for r in ranks]} by rank (CUDA events), "
+          f"of it in the collectives (host clock) "
+          f"{[[round(st['coll_s'] * 1e3, 1) for st in r['steps']] for r in ranks]}; one device "
+          f"over {LM_TP_MESH[0]} microbatches: (i)'s first steps; a rank's model, optimizer "
+          f"state and batch built in {[round(r['setup_s'], 1) for r in ranks]} s; peak bytes "
+          f"{[r['peak'] for r in ranks]} a rank, one device {peak}; {free} bytes free before "
+          f"the spawn; the world of (r) and (s) {wall:.1f} s; card {card}")
+    for kind in ("all-gather", "all-reduce"):
+        seen = sorted({(st["calls"][kind], st["bytes"][kind]) for r in ranks for st in r["steps"]})
+        print(f"lm tp (r): {kind} (calls, bytes) a step a rank {seen}, predicted {comm[kind]}")
+    other = {k for r in ranks for st in r["steps"] for k, v in st["calls"].items()
+             if v and k not in comm}
+    print(f"lm tp (r): loss by step {got[0]} (ranks equal: {all(g == got[0] for g in got)}) "
+          f"against one device's {w_loss} (bound {LM_TP_LOSS_TOL}); grad norm {norms[0]} "
+          f"against {[w['grad_norm'] for w in want]} (bound {LM_TP_NORM_TOL} of it); every "
+          f"parameter block after each step ({LM_TP_SAMPLE} evenly spaced elements of each) within "
+          f"{[round(e, 6) for e in worst]} of one "
+          f"device's (bounds, 2 lr a step and 2^-22 of the largest parameter {top:.4g}: "
+          f"{[round(2 * sum(x['lr'] for x in want[:i + 1]) + 2 * 2.0 ** -23 * top, 6) for i in range(n)]})")
+    check(all(g == got[0] for g in got), "lm tp (r): the ranks' losses differ")
+    check(all(abs(a - w) <= LM_TP_LOSS_TOL for a, w in zip(got[0], w_loss)),
+          f"lm tp (r): losses {got[0]} against {w_loss}")
+    check(all(abs(a - w["grad_norm"]) <= LM_TP_NORM_TOL * w["grad_norm"]
+              for a, w in zip(norms[0], want)), f"lm tp (r): grad norms {norms[0]}")
+    check(ok, f"lm tp (r): parameter blocks {worst} from one device's")
+    check(not other and all((st["calls"][k], st["bytes"][k]) == comm[k] for r in ranks
+                            for st in r["steps"] for k in comm),
+          f"lm tp (r): collectives {ranks[0]['steps'][0]['calls']} "
+          f"{ranks[0]['steps'][0]['bytes']}, predicted {comm}")
+    return [r["launches"] for r in ranks]
+
+
+def tp_serve(served, cfg, prules, drules, prompts, tokens, steps: int, mesh=None) -> dict:
+    """Prefill `prompts` under `prules`, then `steps` decode steps under
+    `drules` (the prefill's caches resharded to them on a mesh),
+    teacher-forced with `tokens` (B, steps; the decode's own greedy tokens
+    when None): the prefill's last logits and each step's (f32 numpy, the
+    whole vocab), prefill and reshard ms, step ms, the drops of the MoE
+    layers, and on a mesh each step's collective bytes by kind and the
+    reshard's."""
+    from repro_torch.models import transformer as T
+
+    out = {"logits": [], "ms": [], "bytes": []}
+    max_seq = prompts.shape[1] + steps
+    with moe_drops() as counts:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, caches = T.prefill(served, prompts, cfg, prules, max_seq)
+        logits = T.gather_logits(logits, prules)
+        b.record()
+        b.synchronize()
+        out["prefill_ms"] = a.elapsed_time(b)
+        out["prefill"] = logits[:, -1].float().cpu().numpy()
+        out["prefill_drops"] = total_drops(counts)
+        n_prefill = len(counts)
+        if mesh is not None:
+            mesh.counter.reset()
+            t0 = time.perf_counter()
+            caches = T.reshard_caches(caches, cfg, prules, drules)
+            torch.cuda.synchronize()
+            out["reshard_ms"] = (time.perf_counter() - t0) * 1e3
+            out["reshard_bytes"] = dict(mesh.counter.bytes)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        for i in range(steps):
+            if tokens is not None:
+                tok = tokens[:, i:i + 1]
+            if mesh is not None:
+                mesh.counter.reset()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, caches = T.decode_step(served, tok, caches, prompts.shape[1] + i, cfg,
+                                           drules, mesh=mesh)
+            logits = T.gather_logits(logits, drules)
+            b.record()
+            b.synchronize()
+            out["ms"].append(a.elapsed_time(b))
+            out["logits"].append(logits[:, -1].float().cpu().numpy())
+            if mesh is not None:
+                out["bytes"].append(dict(mesh.counter.bytes))
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out["decode_drops"] = total_drops(counts[n_prefill:])
+    return out
+
+
+def tp_h2o_rank(mesh, prompts, tokens) -> dict:
+    """(r), then (s), on one rank of one world (one spawn for both)."""
+    out = {"r": tp_train_rank(mesh)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = tp_serve_rank(mesh, "s", prompts, tokens)
+    return out
+
+
+def tp_serve_rank(mesh, arch_key: str, prompts, tokens) -> dict:
+    """(s) or (t) on one rank: the rank's blocks of the served weights
+    (bf16), its rows of the prompts, the witness's tokens of its rows."""
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.kernels import fused
+    from repro_torch.launch.specs import shape_rules
+    from repro_torch.models import transformer as T
+
+    dev = mesh.device
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, (b, p, steps) = tp_serve_config(arch_key)
+    cells = tp_shapes(b, p, p + steps)
+    prules, drules = shape_rules(cfg, cells["prefill"], mesh), shape_rules(cfg, cells["decode"], mesh)
+    t0 = time.perf_counter()
+    served = T.cast_weights(T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev,
+                                          rules=prules), cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(served))
+    row = (*prules.pspec("batch"), None)
+    out = tp_serve(served, cfg, prules, drules, shard(torch.from_numpy(prompts), mesh, row).to(dev),
+                   shard(torch.from_numpy(tokens), mesh, row).to(dev), steps, mesh)
+    return dict(out, peak=torch.cuda.max_memory_allocated(dev), init_s=init_s,
+                weight_bytes=weight_bytes, rows=shard(torch.arange(b), mesh, row[:1]).tolist(),
+                launches=dict(fused.LAUNCHES))
+
+
+def tp_serve_config(arch_key: str):
+    """(config, (batch, prompt, decode steps)) of (s) or (t)."""
+    from repro_torch.configs.registry import get_arch
+
+    if arch_key == "s":
+        return get_arch(LM_ARCH).config, LM_TP_SERVE
+    return ep_config(), LM_TP_JAMBA
+
+
+def lm_tp_serve_witness(dev, arch_key: str) -> dict:
+    """(s)'s or (t)'s one-device witness: the prompts, the served logits and
+    the greedy tokens that teacher-force the ranks."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.models import transformer as T
+
+    cfg, (b, p, steps) = tp_serve_config(arch_key)
+    rng = np.random.default_rng(LM_SEED + (23 if arch_key == "s" else 29))
+    prompts = rng.integers(1, cfg.vocab_size, (b, p)).astype(np.int32)
+    none = ShardingRules.make(None)
+    torch.cuda.reset_peak_memory_stats()
+    served = T.cast_weights(T.init_params(torch.Generator().manual_seed(LM_SEED), cfg, dev), cfg)
+    weight_bytes = sum(t.numel() * t.element_size() for t in lm_leaves(served))
+    want = tp_serve(served, cfg, none, none, torch.from_numpy(prompts).to(dev), None, steps)
+    peak = torch.cuda.max_memory_allocated()
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = np.concatenate([want["prefill"].argmax(-1)[:, None]]
+                            + [lg.argmax(-1)[:, None] for lg in want["logits"][:-1]],
+                            axis=1).astype(np.int32)
+    return {"key": arch_key, "cfg": cfg, "want": want, "prompts": prompts, "tokens": tokens,
+            "weight_bytes": weight_bytes, "peak": peak}
+
+
+def lm_tp_serve_check(w: dict, ranks: list, dev, card: str, mesh_shape: tuple, axes: tuple,
+                      tol: float, free: int, wall: float) -> list:
+    """(s)'s or (t)'s holds on the world's `ranks` against the witness `w`;
+    returns the ranks' kernel launch counts."""
+    from repro_torch.launch.mesh import choose_transport, rank_devices
+
+    arch_key, cfg, want = w["key"], w["cfg"], w["want"]
+    weight_bytes, peak = w["weight_bytes"], w["peak"]
+    b, p, steps = tp_serve_config(arch_key)[1]
+    transport = choose_transport(rank_devices(math.prod(mesh_shape), dev))
+    errs, agree, clear = [], [], []
+    for r in ranks:
+        got = [r["prefill"]] + r["logits"]
+        ref = [want["prefill"][r["rows"]]] + [w[r["rows"]] for w in want["logits"]]
+        errs.append(max(float(np.abs(g - w).max()) for g, w in zip(got, ref)))
+        for g, w in zip(got[:-1], ref[:-1]):
+            top2 = np.sort(w, axis=-1)[:, -2:]
+            ok = g.argmax(-1) == w.argmax(-1)
+            agree.append(bool(ok.all()))
+            clear.append(bool(ok[(top2[:, 1] - top2[:, 0]) > tol].all()))
+    step_bytes = sorted({tuple(sorted((k, v) for k, v in x.items() if v)) for r in ranks
+                         for x in r["bytes"]})
+    tag = "s" if arch_key == "s" else "t"
+    print(f"lm tp ({tag}) {cfg.name}: serving on {dict(zip(axes, mesh_shape))} on {dev} "
+          f"({transport}), batch {b}, prompt {p} under the prefill rules, {steps} decode steps "
+          f"under decode_32k's (kv_seq -> model), teacher-forced: prefill s "
+          f"{[round(r['prefill_ms'] / 1e3, 4) for r in ranks]} (ranks), "
+          f"{want['prefill_ms'] / 1e3:.4f} (one device); the caches resharded in "
+          f"{[round(r['reshard_ms'], 1) for r in ranks]} ms moving "
+          f"{[{k: v for k, v in r['reshard_bytes'].items() if v} for r in ranks][0]} bytes a rank; "
+          f"decode ms a step, median {[round(statistics.median(r['ms']), 4) for r in ranks]} "
+          f"(ranks), {statistics.median(want['ms']):.4f} (one device; CUDA events, synchronized a "
+          f"step); collective bytes a decode step a rank {step_bytes}; weights "
+          f"{[r['weight_bytes'] for r in ranks]} bytes a rank of {weight_bytes}, built in "
+          f"{[round(r['init_s'], 1) for r in ranks]} s; peak {[r['peak'] for r in ranks]} bytes "
+          f"a rank, one device {peak}; {free} bytes free before the spawn; "
+          f"{'the world of (r) and (s)' if tag == 's' else 'the world'} {wall:.1f} s; card {card}")
+    print(f"lm tp ({tag}): logits against one device: max |diff| "
+          f"{[round(e, 5) for e in errs]} by rank (bound {tol}); greedy tokens equal "
+          f"{sum(agree)} of {len(agree)} steps and ranks, where the margin passes the bound "
+          f"{sum(clear)} of {len(clear)}; dropped choices, prefill: ranks "
+          f"{[r['prefill_drops'] for r in ranks]}, one device {want['prefill_drops']}; decode: "
+          f"{[r['decode_drops'] for r in ranks]}, {want['decode_drops']}")
+    check(max(errs) <= tol, f"lm tp ({tag}): logits {errs} from one device's")
+    check(all(clear), f"lm tp ({tag}): a greedy token differs where the margin passes the bound")
+    groups = {tuple(r["rows"]): r for r in ranks}  # one rank of each set of rows
+    check(sum(r["prefill_drops"] for r in groups.values()) == want["prefill_drops"]
+          and all(r["decode_drops"] == 0 for r in ranks) and want["decode_drops"] == 0,
+          f"lm tp ({tag}): the drops differ from one device's")
+    if arch_key == "t":
+        check(all(2 * r["weight_bytes"] <= weight_bytes * 1.01 for r in ranks),
+              f"lm tp (t): a rank holds {[r['weight_bytes'] for r in ranks]} of {weight_bytes}")
+    return [r["launches"] for r in ranks]
+
+
+def lm_tp_dryrun(card: str) -> None:
+    """(u): ``python -m repro_torch.launch.dryrun --arch all --shape all
+    --mesh both``: every production cell's per-rank argument GiB."""
+    out = ROOT / "build" / "chip_smoke_dryrun.jsonl"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+                           "--shape", "all", "--mesh", "both", "--out", str(out)],
+                          capture_output=True, text=True, env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"lm tp (u): the dry run failed: {proc.stdout[-2000:]}"
+                                f"{proc.stderr[-2000:]}")
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    out.unlink()
+    cells = {}
+    for r in recs:
+        key = f"{r['arch']}:{r['shape']}"
+        gib = (round(r["memory"]["argument_bytes"] / 2**30, 3) if r["status"] == "ok"
+               else r["status"])
+        cells.setdefault(key, []).append(gib)
+    print(f"lm tp (u): the dry run, {len(recs)} cells in {wall:.1f} s (no ranks, nothing "
+          f"allocated), argument GiB a rank [single, multi]: "
+          + "; ".join(f"{k} {v}" for k, v in cells.items()) + f"; card {card}")
+    check(all(r["status"] in ("ok", "skip") for r in recs), "lm tp (u): a cell failed")
+
+
+def phase_lm_tp(dev, h2o_witness: dict) -> None:
+    """The LM's tensor-parallel and FSDP layout (ROADMAP A8): every weight
+    the rank's block of the reference's ``param_pspecs``, FSDP weights
+    gathered in bf16 as read, column- then row-parallel products over
+    ``model``, the vocab-split embedding and cross-entropy, decode's caches
+    under ``cache_pspecs``; ranks sharing the card over gloo staged through
+    pinned memory, so the times say little of collectives and parity is
+    the bar; each witness runs in this process first and is freed before
+    the spawn:
+
+    (r) h2o-danube-1.8b training at full width on LM_TP_MESH, LM_TP_TRAIN,
+        against the one-device step over the data ranks' rows as
+        microbatches: the loss, the gradient norm, every parameter block
+        after each step, and the collectives against the layout's count;
+    (s) h2o-danube-1.8b serving on LM_TP_MESH: prefill under the prefill
+        rules, decode under decode_32k's after a reshard of the caches,
+        teacher-forced, the logits within LM_BF16_TOL;
+    (t) one jamba-v0.1-52b period on (model=2) under its default rules: the
+        dense dispatch of each rank's experts, the SSM split over ``ff``,
+        the logits within (f)'s bound, the drops equal, half the weights a
+        rank;
+    (u) the dry run of every production cell.
+
+    (r)'s witness is ``phase_lm_train`` (i)'s first steps (`h2o_witness`,
+    the same function); (r) and (s) run in one world of ranks, one after
+    the other (one spawn).  None of the eight kernels is launched."""
+    from repro_torch.kernels import fused
+
+    from repro_torch.launch.mesh import run_spmd
+
+    t0 = time.perf_counter()
+    card = card_line(CARD)
+    fused.reset_launches()
+    axes = ("data", "model")
+    r, s = h2o_witness, lm_tp_serve_witness(dev, "s")
+    free, t1 = torch.cuda.mem_get_info()[0], time.perf_counter()
+    ranks = run_spmd(tp_h2o_rank, LM_TP_MESH, axes, device=dev,
+                     args=(s["prompts"], s["tokens"]), timeout=900)
+    wall = time.perf_counter() - t1
+    counts = (lm_tp_train_check(r, [x["r"] for x in ranks], dev, card, free, wall)
+              + lm_tp_serve_check(s, [x["s"] for x in ranks], dev, card, LM_TP_MESH, axes,
+                                  LM_BF16_TOL, free, wall))
+    del r, s
+    t = lm_tp_serve_witness(dev, "t")
+    free, t1 = torch.cuda.mem_get_info()[0], time.perf_counter()
+    ranks = run_spmd(tp_serve_rank, (2,), ("model",), device=dev,
+                     args=("t", t["prompts"], t["tokens"]), timeout=900)
+    counts += lm_tp_serve_check(t, ranks, dev, card, (2,), ("model",),
+                                LM_FULL_TOL["jamba-v0.1-52b"], free, time.perf_counter() - t1)
+    lm_tp_dryrun(card)
+    counts.append(dict(fused.LAUNCHES))
+    launched = {k: sum(c.get(k, 0) for c in counts) for k in fused.LAUNCHES}
+    launched = {k: v for k, v in launched.items() if v}
+    check(not launched, f"lm tp: the layout launched {launched}")
+    print(f"lm tp: none of the eight kernels launched, by the witnesses or by the "
+          f"{len(counts) - 1} rank runs of (r)-(t); {time.perf_counter() - t0:.1f} s in all; "
           f"card {card}")
 
 
@@ -4824,8 +5437,9 @@ def main() -> int:
     phase_sim()
     phase_lm_serve(dev)
     phase_lm_families(dev)
-    phase_lm_train(dev)
+    h2o_witness = phase_lm_train(dev)
     phase_lm_mesh(dev)
+    phase_lm_tp(dev, h2o_witness)
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
                **store_by_path, **service_by_path, **mesh_by_path, **train_by_path,

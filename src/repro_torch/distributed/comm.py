@@ -17,6 +17,11 @@ which block; the enqueue on NCCL).
   rank's addend is the cotangent itself.  (An all-reduce that all-reduces
   again in its backward would scale the addends' gradients by the axis
   size.)
+* ``copy_to(x, mesh, axis)``: Megatron's "f", the identity forward whose
+  backward sums the cotangent over the axis.  It stands at the input of
+  every column-parallel product: each rank's part of the product sends back
+  its share of the input's gradient, and the sum is the whole gradient on
+  every rank.  ``psum`` is its "g", after every row-parallel product.
 * ``pmax`` (``all-reduce``), ``all_gather`` (``all-gather``, stacked on a
   new leading axis) and ``gather_shards`` (an all-gather along a tensor
   axis whose backward sums the cotangent over the axis and keeps this
@@ -158,6 +163,24 @@ def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return x
     return _PSum.apply(x, mesh, axis)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.mesh, ctx.axis, dist.ReduceOp.SUM), None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """`x` as it is; its backward sums the cotangent over `axis`."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
 
 
 def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

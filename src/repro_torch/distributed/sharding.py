@@ -18,8 +18,16 @@ A spec (``pspec``) is a tuple with one entry per tensor axis: None
 (replicated), a mesh axis name, or a tuple of mesh axis names (major
 first).  Where the reference hands a ``PartitionSpec`` to XLA, the port runs
 one program per rank (``launch.mesh``): ``shard`` slices a global tensor to
-this rank's block, ``gather`` reassembles it, and ``constrain``
-(``shard_activation``) checks a local tensor's rank and moves nothing.
+this rank's block, ``gather`` reassembles it, ``reshard`` moves a block from
+one spec to another, and ``constrain`` (``shard_activation``) checks a local
+tensor's rank and moves nothing.  ``block_index`` and ``block_shape`` need
+the mesh's shape and a rank's coordinates alone, so a ``launch.mesh.Mesh``
+record built without a world (``Mesh(shape, rank, torch.device("meta"),
+"none")``) answers for any rank: the dry run's use.
+
+An axis that does not divide into its blocks raises ``ValueError``, as the
+reference's ``NamedSharding.shard_shape`` and ``jit``'s ``in_shardings``
+do (jax 0.9.0 pads no uneven block).
 ``ShardingRules.sharding`` gives a ``NamedSharding``: the mesh and the spec
 in one frozen record, which specs can carry as the reference's do.
 """
@@ -187,6 +195,12 @@ def block_index(shape, mesh, spec: Spec, coords: Optional[Mapping[str, int]] = N
     return tuple(index)
 
 
+def block_shape(shape, mesh, spec: Spec, coords: Optional[Mapping[str, int]] = None) -> tuple:
+    """The shape of the block of a global `shape` that the rank at `coords`
+    holds under `spec` (raises as ``block_index``)."""
+    return tuple(s.stop - s.start for s in block_index(tuple(shape), mesh, spec, coords))
+
+
 def shard(x, mesh, spec: Spec):
     """This rank's block of a global tensor (or numpy array, a view of it)
     under `spec`.  Raises where a sharded axis does not divide by its
@@ -202,3 +216,23 @@ def gather(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
             if mesh.shape[axis] > 1:
                 x = torch.cat(list(comm.all_gather(x, mesh, axis)), dim=dim)
     return x
+
+
+def reshard(x: torch.Tensor, mesh, src: Spec, dst: Spec) -> torch.Tensor:
+    """This rank's block under `dst` of the global tensor whose block under
+    `src` is `x`: each tensor axis whose entry differs is all-gathered
+    over `src`'s axes, then every such axis is cut to this rank's block
+    under `dst` (a copy; `x` itself where the specs agree)."""
+    n = max(len(src), len(dst), x.dim())
+    src_axes = [entry_axes(src[d]) if d < len(src) else () for d in range(n)]
+    dst_axes = [entry_axes(dst[d]) if d < len(dst) else () for d in range(n)]
+    moved = [d for d in range(n) if src_axes[d] != dst_axes[d]]
+    if not moved:
+        return x
+    for d in moved:
+        for axis in reversed(src_axes[d]):
+            if mesh.shape[axis] > 1:
+                x = torch.cat(list(comm.all_gather(x, mesh, axis)), dim=d)
+    index = block_index(tuple(x.shape), mesh, tuple(dst[d] if d in moved and d < len(dst)
+                                                    else None for d in range(x.dim())))
+    return x[index].clone()

@@ -16,12 +16,20 @@ Where the port differs, and why:
 * ``cross_caches`` builds the cross K/V one decoder layer at a time (the
   reference's ``examples/serve_lm.py`` maps over the stacked layers).
 
+On a mesh the layout is the decoder-only model's (``transformer``): the
+attention of the rank's heads in every encoder, decoder and cross
+attention, column- then row-parallel MLPs, the vocab-split embedding and
+head, and the caches under ``cache_pspecs``: the cross K/V too take the
+rank's heads, or its slice of the encoder's sequence where ``kv_seq``
+maps to ``model`` (decode then combines over it, as
+``transformer.decode_attend`` does).
+
 Under ``cfg.remat`` other than ``"none"`` the reference checkpoints every
 encoder and decoder layer with a plain ``jax.checkpoint`` (nothing saved),
 whatever the policy's name; so does the port, with
 ``transformer.remat_call("full", ...)`` when a gradient is taken.
-Decode stays plain on any mesh, as the reference's does: it never takes
-the context-parallel path.
+Decode never takes the ``data`` axis's context-parallel path, as the
+reference's does not.
 """
 
 from __future__ import annotations
@@ -31,15 +39,18 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.common.util import resolve_device
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ParamDef,
     Schema,
     apply_rope,
     blockwise_attention,
-    decode_attention,
     init_from_schema,
+    live_axes,
     load_weight,
+    tp_copy,
+    tp_gather,
     mlp_apply,
     mlp_schema,
     pspecs_from_schema,
@@ -48,12 +59,22 @@ from repro_torch.models.layers import (
     tree_from_numpy,
 )
 from repro_torch.models.transformer import (
+    _attn_out,
+    _head_split,
+    _kv_for_heads,
+    _kv_split,
+    _logits_head,
     _period,
     _periods,
     attn_schema,
+    cache_block_shapes,
     chunked_xent,
+    cp_axis_of,
+    decode_attend,
     dtype_of,
+    embed_lookup,
     remat_call,
+    write_token_kv,
 )
 
 
@@ -120,24 +141,39 @@ def param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
     return pspecs_from_schema(model_schema(cfg), rules)
 
 
-def _mha(p, xq, xkv, positions_q, positions_kv, cfg, rules, causal) -> torch.Tensor:
-    b, sq, _ = xq.shape
-    skv = xkv.shape[1]
-    h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dt = xq.dtype
-    wq = load_weight(p["wq"], rules, None, "heads", dtype=dt)
+def _kv_proj(p, xkv: torch.Tensor, cfg: ModelConfig, rules):
+    """k and v (B, S, K', hd) of `xkv` (already through ``tp_copy``): the
+    rank's kv heads, or every kv head where they do not divide the heads'
+    axis."""
+    b, skv, _ = xkv.shape
+    dt = xkv.dtype
     wk = load_weight(p["wk"], rules, None, "kv_heads", dtype=dt)
     wv = load_weight(p["wv"], rules, None, "kv_heads", dtype=dt)
-    kv_ax = "kv_heads" if cfg.n_kv_heads % max(rules.axis_size("kv_heads"), 1) == 0 else None
-    q = rules.constrain(xq @ wq, "batch", "seq", "heads").reshape(b, sq, h, hd)
-    kk = rules.constrain(xkv @ wk, "batch", "seq", kv_ax).reshape(b, skv, k, hd)
-    vv = rules.constrain(xkv @ wv, "batch", "seq", kv_ax).reshape(b, skv, k, hd)
+    if not _kv_split(cfg, rules):
+        wk, wv = tp_gather(wk, rules, "kv_heads", 1), tp_gather(wv, rules, "kv_heads", 1)
+    kl = wk.shape[1] // cfg.hd
+    return (xkv @ wk).reshape(b, skv, kl, cfg.hd), (xkv @ wv).reshape(b, skv, kl, cfg.hd)
+
+
+def _mha(p, xq, xkv, positions_q, positions_kv, cfg, rules, causal) -> torch.Tensor:
+    """Attention of the rank's heads of `xq` over `xkv`, its output
+    projection summed over the heads' axes."""
+    b, sq, _ = xq.shape
+    n, _ = _head_split(cfg, rules)
+    hd = cfg.hd
+    dt = xq.dtype
+    same = xkv is xq
+    xq = tp_copy(xq, rules, "heads")
+    xkv = xq if same else tp_copy(xkv, rules, "heads")
+    wq = load_weight(p["wq"], rules, None, "heads", dtype=dt)
+    q = rules.constrain(xq @ wq, "batch", "seq", "heads").reshape(b, sq, cfg.n_heads // n, hd)
+    kk, vv = _kv_proj(p, xkv, cfg, rules)
     if positions_q is not None:
         q = apply_rope(q, positions_q, cfg.rope_theta)
         kk = apply_rope(kk, positions_kv, cfg.rope_theta)
+    kk, vv = _kv_for_heads(kk, vv, cfg, rules)
     out = blockwise_attention(q, kk, vv, causal=causal)
-    wo = load_weight(p["wo"], rules, "heads", None, dtype=dt)
-    return out.reshape(b, sq, h * hd) @ wo
+    return _attn_out({"attn": p}, out, cfg, rules)
 
 
 def _remat(cfg: ModelConfig) -> str:
@@ -175,7 +211,7 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     enc_out = encode(params, batch["frames"], cfg, rules)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    h = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    h = embed_lookup(params["embed"], tokens, dtype_of(cfg.dtype), rules)
     pos = torch.arange(s, device=tokens.device).expand(b, s)
     for lp in _periods(params["dec_layers"], cfg.n_layers):
         h = remat_call(_remat(cfg), _dec_layer, lp, h, enc_out, pos, cfg, rules)
@@ -204,23 +240,31 @@ def cache_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
     return {"self_k": p, "self_v": p, "cross_k": p, "cross_v": p}
 
 
-def cross_caches(params, enc_out: torch.Tensor, cfg: ModelConfig,
-                 max_seq: int) -> Dict[str, torch.Tensor]:
+def cross_caches(params, enc_out: torch.Tensor, cfg: ModelConfig, max_seq: int,
+                 rules=None) -> Dict[str, torch.Tensor]:
     """The decode caches for `enc_out` (B, S_enc, d): the cross K/V of
     every decoder layer, (n_layers, B, S_enc, K, hd), and zeroed
-    self-attention K/V of `max_seq` positions."""
+    self-attention K/V of `max_seq` positions.  With meshed `rules` the
+    rank's blocks under ``cache_pspecs`` (`enc_out` the rank's rows; the
+    rules must leave ``kv_seq`` unmapped: ``transformer.reshard_caches``
+    moves the caches to a decode shape's layout)."""
     b, s, _ = enc_out.shape
-    k, hd, dt = cfg.n_kv_heads, cfg.hd, enc_out.dtype
-    shape = (cfg.n_layers, b, s, k, hd)
-    ck = torch.empty(shape, dtype=dt, device=enc_out.device)
-    cv = torch.empty(shape, dtype=dt, device=enc_out.device)
+    dt = enc_out.dtype
+    rules = rules or ShardingRules.make(None)
+    if live_axes(rules, rules.pspec("kv_seq")[0]):
+        raise ValueError("cross_caches fills caches whose sequence is whole: build them "
+                         "under rules with kv_seq unmapped, then reshard_caches")
+    shapes = cache_block_shapes(cfg, b, max_seq, rules, spec_fn=cache_spec,
+                                pspec_fn=cache_pspecs)
+    xkv = tp_copy(enc_out, rules, "heads")
+    cross = shapes["cross_k"][0][:2] + (s,) + shapes["cross_k"][0][3:]
+    ck = torch.empty(cross, dtype=dt, device=enc_out.device)
+    cv = torch.empty(cross, dtype=dt, device=enc_out.device)
     for j in range(cfg.n_layers):
-        xp = params["dec_layers"]["xattn"]
-        ck[j] = (enc_out @ xp["wk"][j].to(dt)).reshape(b, s, k, hd)
-        cv[j] = (enc_out @ xp["wv"][j].to(dt)).reshape(b, s, k, hd)
-    self_shape = (cfg.n_layers, b, max_seq, k, hd)
-    return {"self_k": torch.zeros(self_shape, dtype=dt, device=enc_out.device),
-            "self_v": torch.zeros(self_shape, dtype=dt, device=enc_out.device),
+        xp = _period(params["dec_layers"]["xattn"], j)
+        ck[j], cv[j] = _kv_proj(xp, xkv, cfg, rules)
+    return {"self_k": torch.zeros(shapes["self_k"][0], dtype=dt, device=enc_out.device),
+            "self_v": torch.zeros(shapes["self_v"][0], dtype=dt, device=enc_out.device),
             "cross_k": ck, "cross_v": cv}
 
 
@@ -229,41 +273,45 @@ def decode_step(params, token: torch.Tensor, caches: Dict[str, torch.Tensor], ca
                 shard_kv_seq: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder token against the self- and cross-attention caches:
     (logits (B, 1, V), `caches` with the token's self k and v written in
-    place).  C11: raises at ``cache_len >= max_seq``."""
+    place).  C11: raises at ``cache_len >= max_seq``.  On a mesh the
+    caches are the rank's blocks under ``cache_pspecs`` and the logits
+    the rank's vocab block; where ``kv_seq`` maps to a mesh axis both
+    attentions combine over it."""
     b = token.shape[0]
-    h_, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = dtype_of(cfg.dtype)
+    mesh = rules.mesh if mesh is None else mesh
+    cp_axis = cp_axis_of(rules, None, False, True)  # never the data axis's path
+    n_slices = 1 if cp_axis is None else mesh.shape[cp_axis]
     n = int(cache_len)
-    max_seq = caches["self_k"].shape[2]
+    max_seq = n_slices * caches["self_k"].shape[2]
     if not 0 <= n < max_seq:
         raise ValueError(f"cache_len {n} is outside the cache's {max_seq} positions; "
                          f"the reference would overwrite its last slot")
-    h = params["embed"][token].to(dt)
+    h = embed_lookup(params["embed"], token, dt, rules)
     pos = torch.full((b, 1), n, dtype=torch.int32, device=token.device)
     valid = torch.full((b,), n + 1, dtype=torch.int32, device=token.device)
-    enc_len = caches["cross_k"].shape[2]
+    enc_len = n_slices * caches["cross_k"].shape[2]
     enc_valid = torch.full((b,), enc_len, dtype=torch.int32, device=token.device)
+    hn, _ = _head_split(cfg, rules)
+    hl = cfg.n_heads // hn
     for j in range(cfg.n_layers):
         lp = _period(params["dec_layers"], j)
-        sk, sv = caches["self_k"][j], caches["self_v"][j]
-        xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        q = apply_rope((xn @ lp["attn"]["wq"].to(dt)).reshape(b, 1, h_, hd), pos, cfg.rope_theta)
-        kt = apply_rope((xn @ lp["attn"]["wk"].to(dt)).reshape(b, 1, k, hd), pos,
-                        cfg.rope_theta)
-        vt = (xn @ lp["attn"]["wv"].to(dt)).reshape(b, 1, k, hd)
-        sk[:, n] = kt[:, 0]
-        sv[:, n] = vt[:, 0]
-        a = decode_attention(q, sk, sv, valid)
-        h = h + a.reshape(b, 1, h_ * hd) @ lp["attn"]["wo"].to(dt)
+        lcache = {"k": caches["self_k"][j], "v": caches["self_v"][j]}
+        xn = tp_copy(rmsnorm(h, lp["ln1"], cfg.norm_eps), rules, "heads")
+        wq = load_weight(lp["attn"]["wq"], rules, None, "heads", dtype=dt)
+        q = apply_rope((xn @ wq).reshape(b, 1, hl, cfg.hd), pos, cfg.rope_theta)
+        kt, vt = _kv_proj(lp["attn"], xn, cfg, rules)
+        kt = apply_rope(kt, pos, cfg.rope_theta)
+        write_token_kv(lcache, kt, vt, n, cfg, rules, mesh, cp_axis)
+        a = decode_attend(q, lcache["k"], lcache["v"], valid, cfg, rules, mesh, cp_axis)
+        h = h + _attn_out(lp, a, cfg, rules)
         # cross attention against the precomputed encoder K/V
-        xq = rmsnorm(h, lp["lnx"], cfg.norm_eps)
-        qx = (xq @ lp["xattn"]["wq"].to(dt)).reshape(b, 1, h_, hd)
-        ax = decode_attention(qx, caches["cross_k"][j], caches["cross_v"][j], enc_valid)
-        h = h + ax.reshape(b, 1, h_ * hd) @ lp["xattn"]["wo"].to(dt)
+        xq = tp_copy(rmsnorm(h, lp["lnx"], cfg.norm_eps), rules, "heads")
+        wqx = load_weight(lp["xattn"]["wq"], rules, None, "heads", dtype=dt)
+        qx = (xq @ wqx).reshape(b, 1, hl, cfg.hd)
+        ax = decode_attend(qx, caches["cross_k"][j], caches["cross_v"][j], enc_valid, cfg,
+                           rules, mesh, cp_axis)
+        h = h + _attn_out({"attn": lp["xattn"]}, ax, cfg, rules)
         h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg.mlp_kind, rules)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
-    logits = h @ load_weight(params["head"], rules, None, "vocab", dtype=dt)
-    if cfg.padded_vocab != cfg.vocab_size:
-        valid_v = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
-        logits = torch.where(valid_v, logits, -1e30)
-    return rules.constrain(logits, "batch", "seq", "vocab"), caches
+    return _logits_head(params, h, cfg, rules), caches

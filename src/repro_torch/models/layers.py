@@ -19,6 +19,17 @@ and no compile.  ``cp_decode_attention`` is the context-parallel decode
 over a mesh: each rank holds a contiguous slice of the cache's sequence
 and the partial softmaxes combine by one ``pmax`` and two ``psum``s
 (``distributed.comm``).
+
+On a mesh (``rules.mesh``) every weight is the rank's block under the
+reference's layout (``param_pspecs``): its ``fsdp`` axis over ``data``,
+its tensor-parallel axis (``heads``, ``kv_heads``, ``ff``, ``vocab``,
+``experts``) over ``model``.  ``load_weight`` gathers the ``fsdp`` axes in
+the compute dtype (the reference's explicit bf16 all-gather) and keeps the
+tensor-parallel block.  A column-parallel product takes its input through
+``tp_copy`` (Megatron's "f": the backward sums the input's gradient over
+the axis), a row-parallel one gives its output to ``tp_sum`` ("g", the
+psum).  ``mlp_apply`` is one of each.  With no mesh, or axes of one rank,
+both are the identity and the arithmetic is the one-device arithmetic.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import comm
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import entry_axes, shard, spec_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,10 +180,76 @@ def stack_schema(schema: Schema, n: int) -> Schema:
     return walk(schema)
 
 
+def live_axes(rules, entry) -> tuple:
+    """The mesh axes of one spec entry that have more than one rank
+    (none without a mesh)."""
+    if rules.mesh is None:
+        return ()
+    return tuple(a for a in entry_axes(entry) if rules.mesh.shape[a] > 1)
+
+
+def tp_axes(rules, logical: Optional[str]) -> tuple:
+    """The mesh axes (of more than one rank) that `logical` splits over."""
+    if logical is None:
+        return ()
+    return live_axes(rules, rules.pspec(logical)[0])
+
+
+def tp_index(rules, logical: str) -> int:
+    """This rank's block along `logical` (0 where it is whole)."""
+    if not tp_axes(rules, logical):
+        return 0
+    return spec_index(rules.mesh, rules.pspec(logical)[0])
+
+
+def tp_size(rules, logical: str) -> int:
+    """The number of blocks `logical` is split into on this mesh."""
+    n = 1
+    for a in tp_axes(rules, logical):
+        n *= rules.mesh.shape[a]
+    return n
+
+
+def tp_copy(x: torch.Tensor, rules, logical: Optional[str]) -> torch.Tensor:
+    """`x` entering a product split over `logical` ("f": identity forward,
+    the gradient summed over the axes)."""
+    for a in tp_axes(rules, logical):
+        x = comm.copy_to(x, rules.mesh, a)
+    return x
+
+
+def tp_sum(x: torch.Tensor, rules, logical: Optional[str]) -> torch.Tensor:
+    """The sum over `logical`'s axes of a product split over it ("g")."""
+    for a in tp_axes(rules, logical):
+        x = comm.psum(x, rules.mesh, a)
+    return x
+
+
+def tp_gather(x: torch.Tensor, rules, logical: Optional[str], dim: int) -> torch.Tensor:
+    """The whole of tensor axis `dim` from the ranks' blocks along
+    `logical` (minor mesh axis first); the backward keeps this rank's
+    block of the summed cotangent."""
+    for a in reversed(tp_axes(rules, logical)):
+        x = comm.gather_shards(x, rules.mesh, a, dim)
+    return x
+
+
 def load_weight(p: torch.Tensor, rules, *axes, dtype: torch.dtype) -> torch.Tensor:
     """A weight cast to the compute dtype (no copy when it already is), its
-    axes checked by ``rules.constrain`` (on one device the identity)."""
-    return rules.constrain(p.to(dtype), *axes)
+    axes checked by ``rules.constrain``.  `axes` are the weight's logical
+    axes with ``None`` where its schema says ``fsdp``.  On a mesh `p` is
+    the rank's block of the stored weight, and each mesh axis the stored
+    spec has and `axes`' spec has not (the FSDP axes) is all-gathered after
+    the cast: the reference's explicit compute-dtype gather."""
+    w = p.to(dtype)
+    if rules.mesh is not None:
+        stored = rules.pspec(*("fsdp" if a is None else a for a in axes))
+        kept = rules.pspec(*axes)
+        for dim, (s_entry, k_entry) in enumerate(zip(stored, kept)):
+            for a in reversed(live_axes(rules, s_entry)):
+                if a not in entry_axes(k_entry):
+                    w = comm.gather_shards(w, rules.mesh, a, dim)
+    return rules.constrain(w, *axes)
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +484,10 @@ def mlp_schema(cfg, kind: str) -> Schema:
 
 
 def mlp_apply(params, x: torch.Tensor, kind: str, rules) -> torch.Tensor:
+    """The MLP of `kind`; on a mesh the input products are column-parallel
+    over ``ff`` and the output product row-parallel, summed over it."""
     dt = x.dtype
+    x = tp_copy(x, rules, "ff")
     if kind in ("swiglu", "geglu"):
         w_gate = load_weight(params["w_gate"], rules, None, "ff", dtype=dt)
         w_up = load_weight(params["w_up"], rules, None, "ff", dtype=dt)
@@ -424,4 +504,4 @@ def mlp_apply(params, x: torch.Tensor, kind: str, rules) -> torch.Tensor:
         h = F.gelu(x @ w_in, approximate="tanh")
         h = rules.constrain(h, "batch", "seq", "ff")
         out = h @ w_out
-    return rules.constrain(out, "batch", "seq", "embed")
+    return rules.constrain(tp_sum(out, rules, "ff"), "batch", "seq", "embed")

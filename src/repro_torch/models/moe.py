@@ -23,6 +23,22 @@ block of rows, so the global batch is the block times the batch axes'
 size and always divides by the experts' axis: the reference's dense
 fallback for a batch the axis does not divide has no caller here.  The
 aux loss is the mean of the ranks' aux over the axis.
+
+The rest of the reference's layout is tensor parallelism over ``model``.
+Under the default rules (``experts -> model``: jamba) each rank holds
+``e / n`` experts and the dense dispatch runs them for every one of its
+rows; the combine over its experts is a partial sum, summed over
+``model``.  Under ``ff -> model`` (grok-1 with ``experts -> None``, and
+inside each expert of llama4's all-to-all) each rank holds the ``ff``
+block of every expert it runs: the expert MLP is column- then
+row-parallel and the combine is summed over ``model``.  Either way the
+router and the routing are whole on every rank (drops are counted per
+position, as on one device); the tokens and the gates enter the split
+part through ``layers.tp_copy``, and one ``psum`` ends the layer.  The
+dense dispatch's aux loss takes its experts' fractions over the global
+batch (``_batch_mean``: two ``psum``s over the batch's axes a block), the
+reference's aux, where the all-to-all dispatch's is the mean of the
+ranks' aux.
 """
 
 from __future__ import annotations
@@ -33,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import comm
-from repro_torch.models.layers import ParamDef, Schema, load_weight
+from repro_torch.distributed.sharding import spec_index
+from repro_torch.models.layers import ParamDef, Schema, live_axes, load_weight
 
 # Tokens routed per block, per group (the reference's constant).
 MOE_BLOCK_SEQ = 4096
@@ -64,9 +81,11 @@ def capacity_of(tb: int, cfg) -> int:
 
 
 def _route_block(
-    xb: torch.Tensor, router: torch.Tensor, k: int, capacity: int
+    xb: torch.Tensor, router: torch.Tensor, k: int, capacity: int, mean=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """xb (G, tb, d) -> (dispatch (G, tb, E, C), gates (G, tb, E), aux scalar), f32."""
+    """xb (G, tb, d) -> (dispatch (G, tb, E, C), gates (G, tb, E), aux scalar), f32.
+    `mean` (the identity by default) takes the experts' token and
+    probability fractions of these rows to those of the global batch."""
     e = router.shape[1]
     logits = xb.to(torch.float32) @ router.to(torch.float32)  # (G, tb, E)
     probs = torch.softmax(logits, dim=-1)
@@ -83,6 +102,8 @@ def _route_block(
     dispatch = dispatch.to(torch.float32) * keep[..., None]  # (G, tb, E, C)
     frac_tokens = sel.mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
+    if mean is not None:
+        frac_tokens, frac_probs = mean(frac_tokens), mean(frac_probs)
     aux = e * torch.sum(frac_tokens * frac_probs) / max(k, 1)
     return dispatch, gates, aux
 
@@ -112,20 +133,61 @@ class _AuxMean(torch.autograd.Function):
         return g, None, None
 
 
-def _expert_block(w: torch.Tensor, cfg, mesh, axis: str) -> torch.Tensor:
+def _split_axes(rules) -> Tuple[tuple, tuple]:
+    """The live mesh axes that split an expert stack's experts and its
+    ``ff`` axis (the spec of the weights as the FFN reads them)."""
+    spec = rules.pspec("experts", None, "ff")
+    return live_axes(rules, spec[0]), live_axes(rules, spec[2])
+
+
+def _tp_copy_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for a in axes:
+        x = comm.copy_to(x, mesh, a)
+    return x
+
+
+def _tp_sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for a in axes:
+        x = comm.psum(x, mesh, a)
+    return x
+
+
+def _expert_block(w: torch.Tensor, cfg, mesh, axis: str, n_ff: int = 1) -> torch.Tensor:
     """The rank's experts of one expert stack (E or E / n, d_in, d_out):
     its block along the experts axis (sliced here where `w` is whole).
-    The other two axes must be whole: tensor parallelism over 'ff' is not
-    run by the port (ROADMAP A8)."""
+    Its ``ff`` axis is whole, or the rank's block of ``d_ff / n_ff``."""
     e, n = cfg.n_experts, mesh.shape[axis]
-    full_d = {cfg.d_model, cfg.d_ff}
     if w.shape[0] == e and n > 1:
         i = mesh.coords[axis]
         w = w[i * (e // n):(i + 1) * (e // n)]
-    if w.shape[0] != e // n or set(w.shape[1:]) != full_d:
+    dims = sorted(w.shape[1:])
+    if w.shape[0] != e // n or dims not in (sorted([cfg.d_model, cfg.d_ff]),
+                                           sorted([cfg.d_model, cfg.d_ff // n_ff])):
         raise ValueError(f"an expert stack of {tuple(w.shape)} is not a rank's {e // n} "
-                         f"whole experts of ({cfg.d_model}, {cfg.d_ff})")
+                         f"experts of ({cfg.d_model}, {cfg.d_ff} or {cfg.d_ff // n_ff})")
     return w
+
+
+def _batch_mean(rules):
+    """The mean over the batch's mesh axes of a rank's fractions, for the
+    dense dispatch's aux over the global batch, as the reference's auto
+    sharding computes it (None where the batch is whole).  Its backward
+    sums the cotangent over the axes (``comm.copy_to`` after the psum):
+    every rank's loss holds the same aux, and the meshed step divides the
+    ranks' summed gradients by the axes' size."""
+    mesh = rules.mesh
+    axes = live_axes(rules, rules.pspec("batch")[0])
+    if not axes:
+        return None
+
+    def mean(f):
+        n = 1
+        for a in axes:
+            f = comm.copy_to(comm.psum(f, mesh, a), mesh, a)
+            n *= mesh.shape[a]
+        return f / n
+
+    return mean
 
 
 def _moe_apply_a2a(params, x: torch.Tensor, cfg, rules, tb: int, nb: int, capacity: int,
@@ -143,7 +205,11 @@ def _moe_apply_a2a(params, x: torch.Tensor, cfg, rules, tb: int, nb: int, capaci
     e_local = e // nd
     dt = x.dtype
     router = params["router"].to(torch.float32)
-    w_gate, w_up, w_down = (_expert_block(params[name], cfg, mesh, axis).to(dt)
+    _, ff_axes = _split_axes(rules)
+    n_ff = 1
+    for a in ff_axes:
+        n_ff *= mesh.shape[a]
+    w_gate, w_up, w_down = (_expert_block(params[name], cfg, mesh, axis, n_ff).to(dt)
                             for name in ("w_gate", "w_up", "w_down"))
     outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(nb):
@@ -153,6 +219,7 @@ def _moe_apply_a2a(params, x: torch.Tensor, cfg, rules, tb: int, nb: int, capaci
         del dispatch
         xe = torch.einsum("gtec,gtd->gecd", disp, xt).reshape(bl, nd, e_local, capacity, d)
         xe = comm.all_to_all(xe, mesh, axis, 1, 0).reshape(bl * nd, e_local, capacity, d)
+        xe = _tp_copy_over(xe, mesh, ff_axes)
         g = torch.einsum("gecd,edf->gecf", xe, w_gate)
         u = torch.einsum("gecd,edf->gecf", xe, w_up)
         del xe
@@ -161,10 +228,11 @@ def _moe_apply_a2a(params, x: torch.Tensor, cfg, rules, tb: int, nb: int, capaci
         ye = torch.einsum("gecf,efd->gecd", h, w_down)
         del h
         ye = comm.all_to_all(ye.reshape(bl * nd, 1, e_local, capacity, d), mesh, axis, 0, 1)
+        gates = _tp_copy_over(gates, mesh, ff_axes)
         outs.append(torch.einsum("gtec,gecd->gtd", disp * gates[..., None].to(dt),
                                  ye.reshape(bl, e, capacity, d)))
         aux = aux + aux_b
-    out = outs[0] if nb == 1 else torch.cat(outs, dim=1)
+    out = _tp_sum_over(outs[0] if nb == 1 else torch.cat(outs, dim=1), mesh, ff_axes)
     if nb > 1:
         aux = aux / nb
     return rules.constrain(out, "batch", "seq", "embed"), _AuxMean.apply(aux, mesh, axis)
@@ -198,17 +266,28 @@ def moe_apply(params, x: torch.Tensor, cfg, rules) -> Tuple[torch.Tensor, torch.
     if axis is not None:
         return _moe_apply_a2a(params, x, cfg, rules, tb, nb, capacity, axis=axis)
     lead = None if ep_over_batch else "batch"
+    e_axes, ff_axes = _split_axes(rules)
+    split = tuple(dict.fromkeys(e_axes + ff_axes))
+    if ep_over_batch and e_axes:
+        raise ValueError("experts over a batch axis that does not divide them: the "
+                         "reference's dense fallback is not run by the port")
     w_gate = load_weight(params["w_gate"], rules, "experts", None, "ff", dtype=dt)
     w_up = load_weight(params["w_up"], rules, "experts", None, "ff", dtype=dt)
     w_down = load_weight(params["w_down"], rules, "experts", "ff", None, dtype=dt)
+    el = w_gate.shape[0]  # the rank's experts: a block of e over `e_axes`
+    own = slice(0, e) if not e_axes else slice(
+        spec_index(rules.mesh, rules.pspec("experts")[0]) * el,
+        (spec_index(rules.mesh, rules.pspec("experts")[0]) + 1) * el)
 
     outs, auxes = [], []
+    mean = _batch_mean(rules)
     for i in range(nb):
         xb = x[:, i * tb:(i + 1) * tb, :]
-        dispatch, gates, aux_b = _route_block(xb, params["router"], k, capacity)
-        disp = dispatch.to(dt)
+        dispatch, gates, aux_b = _route_block(xb, params["router"], k, capacity, mean)
+        disp = dispatch.to(dt)[:, :, own]
         del dispatch
-        xe = rules.constrain(torch.einsum("gtec,gtd->gecd", disp, xb),
+        xs = _tp_copy_over(xb, rules.mesh, split)
+        xe = rules.constrain(torch.einsum("gtec,gtd->gecd", disp, xs),
                              lead, "experts", None, None)  # (B, E, C, d)
         g = rules.constrain(torch.einsum("gecd,edf->gecf", xe, w_gate),
                             lead, "experts", None, "ff")
@@ -219,8 +298,9 @@ def moe_apply(params, x: torch.Tensor, cfg, rules) -> Tuple[torch.Tensor, torch.
         ye = rules.constrain(torch.einsum("gecf,efd->gecd", h, w_down),
                              lead, "experts", None, None)
         del h
+        gates = _tp_copy_over(gates, rules.mesh, split)[:, :, own]
         outs.append(torch.einsum("gtec,gecd->gtd", disp * gates[..., None].to(dt), ye))
         auxes.append(aux_b)
-    if nb == 1:
-        return rules.constrain(outs[0], "batch", "seq", "embed"), auxes[0]
-    return rules.constrain(torch.cat(outs, dim=1), "batch", "seq", "embed"), sum(auxes) / nb
+    out = _tp_sum_over(outs[0] if nb == 1 else torch.cat(outs, dim=1), rules.mesh, split)
+    aux = auxes[0] if nb == 1 else sum(auxes) / nb
+    return rules.constrain(out, "batch", "seq", "embed"), aux

@@ -31,6 +31,27 @@ Where the port differs, and why:
   reference's slice would give a window that decode cannot use;
 * ``mamba_decode_step`` writes the new state and conv window into the
   cache tensors it is given and returns them.
+
+On a mesh the block is tensor-parallel over ``ff`` (``model``), in the
+reference's layout: ``conv_x``, ``norm_w`` and the rows of ``out_proj``
+are split over ``ff``, and so are the SSM heads (``ssm_heads``), so a rank
+runs the SSD of its d_in / n channels.  ``zx_proj`` is (d, 2 d_in) with
+its columns over ``ff`` and z, x split at d_in: the rank's contiguous
+block holds other ranks' channels (at n = 2, rank 0 holds all of z and
+rank 1 all of x).  The rank keeps that block, as the dry run's shapes and
+the global checkpoint files need it, and reaches its own z and x columns
+by a gather of whichever is smaller: the weight block (d x 2 d_in / n),
+for a block of more tokens than d (training, prefill), or the product
+x @ block (tokens x 2 d_in / n), for fewer (decode).  Either gather's
+backward sums the cotangent and keeps the rank's block.  The B, C and dt
+projections and their conv are whole on every rank; B, C and dt enter the
+rank's heads through ``tp_copy``, and so do the whole per-head
+``A_log``, ``D`` and ``dt_bias``, so each rank's gradient of them is the
+whole one.  The gated RMSNorm over the split d_in
+sums its squares over ``ff``; ``out_proj`` is row-parallel.  The ``h``
+cache holds the rank's heads, the conv window every channel (the
+reference's ``cache_pspecs``), so decode and prefill gather the rank's new
+x channels into it.
 """
 
 from __future__ import annotations
@@ -40,7 +61,18 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamDef, Schema, load_weight, rmsnorm
+from repro_torch.models.layers import (
+    ParamDef,
+    Schema,
+    load_weight,
+    rmsnorm,
+    tp_axes,
+    tp_copy,
+    tp_gather,
+    tp_index,
+    tp_size,
+    tp_sum,
+)
 
 
 def ssm_dims(cfg):
@@ -66,6 +98,62 @@ def mamba_schema(cfg) -> Schema:
         "norm_w": ParamDef((d_in,), ("ff",), init="zeros"),
         "out_proj": ParamDef((d_in, d), ("ff", "fsdp")),
     }
+
+
+def _ff_split(cfg, rules) -> Tuple[int, int, int]:
+    """(blocks, this rank's block, channels a block) of d_in over ``ff``."""
+    d_in, h, _, _ = ssm_dims(cfg)
+    n = tp_size(rules, "ff")
+    if h % n:
+        raise ValueError(f"{h} SSM heads do not split into {n} blocks")
+    return n, tp_index(rules, "ff"), d_in // n
+
+
+def _zx_own(params, x: torch.Tensor, cfg, rules) -> Tuple[torch.Tensor, torch.Tensor]:
+    """z and x of the rank's channels (..., d_in / n each) from `x` (..., d)."""
+    d_in = ssm_dims(cfg)[0]
+    w = load_weight(params["zx_proj"], rules, None, "ff", dtype=x.dtype)
+    n, r, c = _ff_split(cfg, rules)
+    if n == 1:
+        zx = rules.constrain(x @ w, *(("batch", "seq", "ff") if x.dim() == 3 else ("batch", "ff")))
+        return zx[..., :d_in], zx[..., d_in:]
+    x = tp_copy(x, rules, "ff")
+    own = (slice(r * c, (r + 1) * c), slice(d_in + r * c, d_in + (r + 1) * c))
+    if x.numel() // x.shape[-1] > x.shape[-1]:  # more tokens than rows: gather the weight
+        w = tp_gather(w, rules, "ff", 1)
+        zx = x @ torch.cat([w[:, own[0]], w[:, own[1]]], dim=1)
+        return zx[..., :c], zx[..., c:]
+    zx = tp_gather(x @ w, rules, "ff", x.dim() - 1)
+    return zx[..., own[0]], zx[..., own[1]]
+
+
+def _gated_norm(y: torch.Tensor, w: torch.Tensor, cfg, rules) -> torch.Tensor:
+    """``rmsnorm`` over d_in, of the rank's channels where ``ff`` splits
+    them: the squares summed over the split."""
+    if not tp_axes(rules, "ff"):
+        return rmsnorm(y, w, cfg.norm_eps)
+    dt = y.dtype
+    yf = y.to(torch.float32)
+    sq = tp_copy(tp_sum(torch.sum(yf * yf, dim=-1, keepdim=True), rules, "ff"), rules, "ff")
+    yf = yf * torch.rsqrt(sq / ssm_dims(cfg)[0] + cfg.norm_eps)
+    return (yf * (1.0 + w.to(torch.float32))).to(dt)
+
+
+def _own_heads(params, name: str, heads: slice, rules) -> torch.Tensor:
+    """The rank's heads of a whole per-head parameter, in f32 (its gradient
+    summed over ``ff``: every rank's is the whole one)."""
+    return tp_copy(params[name], rules, "ff")[heads].to(torch.float32)
+
+
+def whole_window(window: torch.Tensor, cfg, rules) -> torch.Tensor:
+    """A conv window (..., d_in / n + 2N) of the rank's x channels and the
+    B, C channels -> (..., d_in + 2N), every x channel gathered over
+    ``ff`` (the cache's layout)."""
+    n, _, c = _ff_split(cfg, rules)
+    if n == 1:
+        return window
+    return torch.cat([tp_gather(window[..., :c].contiguous(), rules, "ff", window.dim() - 1),
+                      window[..., c:]], dim=-1)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -159,15 +247,18 @@ def mamba_forward(
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence mamba2 block: (out (B, S, d), final state (B, H, P, N)
-    f32, the last ``W - 1`` pre-conv channels (B, W - 1, d_in + 2N))."""
+    f32, the last ``W - 1`` pre-conv channels (B, W - 1, d_in + 2N)).  On a
+    mesh the state holds the rank's heads and the channels the rank's x
+    channels (``whole_window`` gathers them)."""
     b, s, d = x.shape
     d_in, h, p, n = ssm_dims(cfg)
     w = cfg.conv_width
     dt_ = x.dtype
+    _, r, c = _ff_split(cfg, rules)
+    hl = c // p
+    heads = slice(r * hl, (r + 1) * hl)
 
-    zx = x @ load_weight(params["zx_proj"], rules, None, "ff", dtype=dt_)
-    zx = rules.constrain(zx, "batch", "seq", "ff")
-    z, xin = zx[..., :d_in], zx[..., d_in:]
+    z, xin = _zx_own(params, x, cfg, rules)
     bcdt = x @ load_weight(params["bcdt_proj"], rules, None, None, dtype=dt_)
     bc_in, dtr = bcdt[..., :2 * n], bcdt[..., 2 * n:]
     start = max(s - (w - 1), 0)
@@ -177,20 +268,21 @@ def mamba_forward(
     conv_tail = F.pad(conv_tail, (0, 0, w - 1 - conv_tail.shape[1], 0))
 
     xin = F.silu(_causal_conv(xin, params["conv_x"].to(dt_)))
-    bc = F.silu(_causal_conv(bc_in, params["conv_bc"].to(dt_)))
+    bc = tp_copy(F.silu(_causal_conv(bc_in, params["conv_bc"].to(dt_))), rules, "ff")
     bmat, cmat = bc[..., :n], bc[..., n:]
 
-    dt_act = F.softplus(dtr.to(torch.float32) + params["dt_bias"].to(torch.float32))  # (B,S,H)
-    a = -torch.exp(params["A_log"].to(torch.float32))  # (H,)
+    dtr = tp_copy(dtr.to(torch.float32), rules, "ff")[..., heads]
+    dt_act = F.softplus(dtr + _own_heads(params, "dt_bias", heads, rules))  # (B,S,H)
+    a = -torch.exp(_own_heads(params, "A_log", heads, rules))  # (H,)
 
-    xh = xin.reshape(b, s, h, p)  # compute dtype (bf16 in production)
+    xh = xin.reshape(b, s, hl, p)  # compute dtype (bf16 in production)
     y, h_t = _ssd_chunked(xh, bmat, cmat, dt_act, a, cfg.ssm_chunk, h0=initial_state)
-    y += params["D"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(b, s, d_in).to(dt_)
+    y += _own_heads(params, "D", heads, rules)[None, None, :, None] * xh.to(torch.float32)
+    y = y.reshape(b, s, c).to(dt_)
     y = y * F.silu(z)
-    y = rmsnorm(y, params["norm_w"], cfg.norm_eps)
+    y = _gated_norm(y, params["norm_w"], cfg, rules)
     out = y @ load_weight(params["out_proj"], rules, "ff", None, dtype=dt_)
-    return rules.constrain(out, "batch", "seq", "embed"), h_t, conv_tail
+    return rules.constrain(tp_sum(out, rules, "ff"), "batch", "seq", "embed"), h_t, conv_tail
 
 
 def mamba_apply(
@@ -221,33 +313,37 @@ def mamba_decode_step(
     d_in, h, p, n = ssm_dims(cfg)
     dt_ = x_t.dtype
     xt = x_t[:, 0, :]
+    _, r, c = _ff_split(cfg, rules)
+    hl = c // p
+    heads = slice(r * hl, (r + 1) * hl)
 
-    zx = xt @ params["zx_proj"].to(dt_)
-    z, xin = zx[..., :d_in], zx[..., d_in:]
-    bcdt = xt @ params["bcdt_proj"].to(dt_)
+    z, xin = _zx_own(params, xt, cfg, rules)
+    bcdt = xt @ load_weight(params["bcdt_proj"], rules, None, None, dtype=dt_)
     bc_in, dtr = bcdt[..., :2 * n], bcdt[..., 2 * n:]
 
-    # conv state: a rolling window of pre-conv activations
-    cur = torch.cat([xin, bc_in], dim=-1)  # (B, d_in + 2N)
+    # conv state: a rolling window of pre-conv activations, every channel
+    cur = whole_window(torch.cat([xin, bc_in], dim=-1), cfg, rules)  # (B, d_in + 2N)
     window = torch.cat([state["conv"], cur[:, None, :]], dim=1)  # (B, W, ch)
-    conv_w = torch.cat([params["conv_x"], params["conv_bc"]], dim=1).to(dt_)  # (W, ch)
-    convd = F.silu(torch.einsum("bwc,wc->bc", window, conv_w))
-    xin_c, bc_c = convd[..., :d_in], convd[..., d_in:]
+    own = torch.cat([window[..., r * c:(r + 1) * c], window[..., d_in:]], dim=-1)
+    conv_w = torch.cat([params["conv_x"], params["conv_bc"]], dim=1).to(dt_)  # (W, c + 2N)
+    convd = F.silu(torch.einsum("bwc,wc->bc", own, conv_w))
+    xin_c, bc_c = convd[..., :c], tp_copy(convd[..., c:], rules, "ff")
     bmat_c, cmat_c = bc_c[..., :n], bc_c[..., n:]
 
-    dt_act = F.softplus(dtr.to(torch.float32) + params["dt_bias"].to(torch.float32))  # (B,H)
-    a = -torch.exp(params["A_log"].to(torch.float32))
+    dtr = tp_copy(dtr.to(torch.float32), rules, "ff")[..., heads]
+    dt_act = F.softplus(dtr + _own_heads(params, "dt_bias", heads, rules))  # (B,H)
+    a = -torch.exp(_own_heads(params, "A_log", heads, rules))
     decay = torch.exp(dt_act * a[None, :])  # (B, H)
 
-    xh = xin_c.reshape(b, h, p).to(torch.float32)
+    xh = xin_c.reshape(b, hl, p).to(torch.float32)
     dbx = torch.einsum("bh,bn,bhp->bhpn", dt_act, bmat_c.to(torch.float32), xh)
     h_new = state["h"]
     h_new.mul_(decay[:, :, None, None]).add_(dbx)
     y = torch.einsum("bhpn,bn->bhp", h_new, cmat_c.to(torch.float32))
-    y = y + params["D"].to(torch.float32)[None, :, None] * xh
-    y = y.reshape(b, d_in).to(dt_)
+    y = y + _own_heads(params, "D", heads, rules)[None, :, None] * xh
+    y = y.reshape(b, c).to(dt_)
     y = y * F.silu(z)
-    y = rmsnorm(y, params["norm_w"], cfg.norm_eps)
-    out = (y @ params["out_proj"].to(dt_))[:, None, :]
+    y = _gated_norm(y, params["norm_w"], cfg, rules)
+    out = tp_sum(y @ load_weight(params["out_proj"], rules, "ff", None, dtype=dt_), rules, "ff")
     state["conv"].copy_(window[:, 1:, :])
-    return out, state
+    return out[:, None, :], state

@@ -54,18 +54,43 @@ gradient a period).
 Every family of the registry serves and trains: attention (full, swa,
 local_global, chunked), mamba and MoE layers.
 
-Context-parallel decode (``shard_kv_seq`` on a mesh with a ``data`` axis,
-as ``launch.specs.shape_rules`` sets it up for ``long_500k``): each rank
-holds its contiguous slice of every attention cache's sequence
-(``cache_pspecs``: ``kv_seq -> data``) and the whole batch.  The new
-token's k and v are written only by the rank whose slice holds position
-``cache_len``, at the local index; attention is
-``layers.cp_decode_attention``; C11 checks ``cache_len`` against the global
-length, the data axis's size times the slice.  The SSM state and conv
-window are not sequence-sharded: every rank computes them whole.  On a
-mesh without a ``data`` axis decode runs plain, as the reference's does.
-The weights stay whole on every rank but the MoE's expert stacks where
-they dispatch by all-to-all (``moe``).
+The layout on a mesh is the reference's GSPMD layout, run as one program
+a rank (``launch.mesh``): every parameter is the rank's block under
+``param_pspecs`` (``rank_params``, ``init_params(..., rules=)``), the
+activations are the rank's rows of the batch, whole along ``embed``.
+``load_weight`` gathers each weight's FSDP axes; the tensor-parallel axes
+stay split, and the layers run on their blocks with explicit collectives
+(``layers.tp_copy`` at the input of a column-parallel product,
+``layers.tp_sum`` after a row-parallel one):
+
+* attention runs on the rank's heads (``heads -> model``).  Where the kv
+  heads do not divide the heads' axis, the kv projections are gathered
+  whole (the reference's ``_kv_axis`` replicates them) and each rank
+  attends with the kv heads of its own q heads;
+* the embedding table is split over ``vocab``: a rank looks up the ids of
+  its rows, zeros the others, and the lookups are summed;
+* the head's logits are the rank's vocab block (``gather_logits`` puts
+  them together); ``chunked_xent`` takes its logsumexp through a ``pmax``
+  and a ``psum`` and the gold logit from the rank that holds it;
+* the MLP, the mamba block (``ssm``) and the MoE (``moe``) are column- then
+  row-parallel over ``ff`` or ``experts``.
+
+Decode reads the caches' layout from ``cache_pspecs``: the rank's heads
+where ``kv_heads`` splits them, the rank's slice of the sequence where
+``kv_seq`` maps to a mesh axis.  Context-parallel decode (``shard_kv_seq``
+on a mesh with a ``data`` axis, ``long_500k``'s rules) gives each rank its
+contiguous slice of the sequence over ``data`` and the whole batch; under
+the other decode shapes' rules (``kv_seq -> model``) the slice is over
+``model``, the axis that also splits the heads, so q's heads are gathered
+over ``model`` (one token's), the partial softmaxes combine over it
+(``layers.cp_decode_attention``) and each rank keeps its heads for ``wo``.
+Either way the new token's k and v are written only by the rank whose
+slice holds position ``cache_len``, at the local index, and C11 checks
+``cache_len`` against the global length.  ``prefill`` fills caches whose
+sequence is whole; ``reshard_caches`` moves them to a decode shape's
+layout (an all-gather of the kv heads over ``model``, then the rank's
+slice of the sequence).  On a mesh without a ``data`` axis and with
+``kv_seq`` unmapped decode runs plain, as the reference's does.
 """
 
 from __future__ import annotations
@@ -82,7 +107,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.common.util import resolve_device
-from repro_torch.distributed.sharding import entry_axes, shard
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import block_shape, entry_axes, reshard, shard, spec_size
 from repro_torch.models import moe, ssm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
@@ -93,12 +119,19 @@ from repro_torch.models.layers import (
     cp_decode_attention,
     decode_attention,
     init_from_schema,
+    live_axes,
     load_weight,
     mlp_apply,
     mlp_schema,
     pspecs_from_schema,
     rmsnorm,
     stack_schema,
+    tp_axes,
+    tp_copy,
+    tp_gather,
+    tp_index,
+    tp_size,
+    tp_sum,
     tree_from_numpy,
 )
 
@@ -156,7 +189,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     the same draw), the whole tree never held at once."""
     specs, mesh = None, None
     if rules is not None and rules.mesh is not None:
-        specs, mesh = rank_param_pspecs(cfg, rules), rules.mesh
+        specs, mesh = param_pspecs(cfg, rules), rules.mesh
     return init_from_schema(generator, model_schema(cfg), dtype_of(cfg.param_dtype),
                             resolve_device(device), specs, mesh)
 
@@ -173,24 +206,8 @@ def param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
     return pspecs_from_schema(model_schema(cfg), rules)
 
 
-def rank_param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
-    """The specs of the parameters as a rank holds them: the expert stacks
-    split over their experts axis where the MoE dispatches by all-to-all
-    (``moe.a2a_axis``), every other leaf whole.  Tensor parallelism and
-    FSDP, the rest of the reference's layout, wait for ROADMAP A8."""
-    axis = moe.a2a_axis(cfg, rules)
-
-    def walk(node):
-        if isinstance(node, ParamDef):
-            return tuple(axis if (a == "experts" and axis is not None) else None
-                         for a in node.axes)
-        return {k: walk(v) for k, v in node.items()}
-
-    return walk(model_schema(cfg))
-
-
 def flat_rank_param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
-    """``rank_param_pspecs`` under ``layers.ParamTree``'s dotted names: the
+    """``param_pspecs`` under ``layers.ParamTree``'s dotted names: the
     ``param_specs`` of a meshed ``train.make_train_step``."""
     out: Dict[str, Any] = {}
 
@@ -202,14 +219,14 @@ def flat_rank_param_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
             else:
                 out[name] = v
 
-    walk(rank_param_pspecs(cfg, rules), "")
+    walk(param_pspecs(cfg, rules), "")
     return out
 
 
 def rank_params(params: Dict[str, Any], cfg: ModelConfig, rules) -> Dict[str, Any]:
-    """This rank's blocks of whole `params` under ``rank_param_pspecs``
+    """This rank's blocks of whole `params` under ``param_pspecs``
     (copies of the split leaves, the other leaves themselves)."""
-    specs = rank_param_pspecs(cfg, rules)
+    specs = param_pspecs(cfg, rules)
 
     def walk(node, spec):
         if isinstance(node, dict):
@@ -263,9 +280,23 @@ def _mlp_or_moe(p, x, spec, cfg, rules):
     return x + mlp_apply(p["mlp"], xn, spec.mlp_kind, rules), 0.0
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dt: torch.dtype,
+                 rules) -> torch.Tensor:
+    """The rows of `tokens` in `dt`.  Where ``vocab`` splits the table, the
+    rank looks up the ids of its rows, zeros the others, and the lookups
+    are summed over the split."""
+    if not tp_axes(rules, "vocab"):
+        return table[tokens].to(dt)
+    rows = table.shape[0]
+    local = tokens.to(torch.int64) - tp_index(rules, "vocab") * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)].to(dt), 0.0)
+    return tp_sum(x, rules, "vocab")
+
+
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
     dt = dtype_of(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    x = embed_lookup(params["embed"], tokens, dt, rules)
     # sqrt(d_model) rounded to the compute dtype on the host, as the
     # reference casts it (50.596 is 50.5 in bf16): no copy to the device
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
@@ -273,35 +304,83 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, rules) -> torc
 
 
 def _logits_head(params, h: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
+    """The logits of `h`: on a mesh the rank's block of the (padded) vocab."""
     dt = h.dtype
+    h = tp_copy(h, rules, "vocab")
     if cfg.tie_embeddings:
         w = params["embed"].T.to(dt)
     else:
         w = load_weight(params["head"], rules, None, "vocab", dtype=dt)
     logits = h @ w
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding rows
-        valid = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
-        logits = torch.where(valid, logits, -1e30)
+        cols = torch.arange(w.shape[1], device=h.device) + tp_index(rules, "vocab") * w.shape[1]
+        logits = torch.where(cols < cfg.vocab_size, logits, -1e30)
     return rules.constrain(logits, "batch", "seq", "vocab")
 
 
+def gather_logits(logits: torch.Tensor, rules) -> torch.Tensor:
+    """The whole vocab from the ranks' blocks of ``_logits_head``'s logits
+    (no copy without a split vocab)."""
+    return tp_gather(logits, rules, "vocab", logits.dim() - 1)
+
+
+def _head_split(cfg: ModelConfig, rules) -> Tuple[int, int]:
+    """(blocks, this rank's block) of the attention heads."""
+    n = tp_size(rules, "heads")
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.n_heads} heads do not split into {n} blocks")
+    if tp_axes(rules, "kv_heads") not in ((), tp_axes(rules, "heads")):
+        raise ValueError("kv_heads must split over the heads' mesh axes or none")
+    return n, tp_index(rules, "heads")
+
+
+def _kv_split(cfg: ModelConfig, rules) -> bool:
+    """Whether the kv projections stay split over the heads' axes (the
+    reference's ``_kv_axis``: only where the kv heads divide the axis)."""
+    return cfg.n_kv_heads % max(rules.axis_size("kv_heads"), 1) == 0
+
+
 def _qkv(p, xn: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, rules):
-    """q and k (rotated) and v of one attention layer, (B, S, heads, hd)."""
+    """q and k (rotated) and v of one attention layer, (B, S, heads, hd):
+    the rank's q heads; its kv heads, or every kv head where they do not
+    divide the heads' axis (``_kv_split``)."""
     b, s, _ = xn.shape
     dt = xn.dtype
+    n, _ = _head_split(cfg, rules)
+    xn = tp_copy(xn, rules, "heads")
     wq = load_weight(p["attn"]["wq"], rules, None, "heads", dtype=dt)
     wk = load_weight(p["attn"]["wk"], rules, None, "kv_heads", dtype=dt)
     wv = load_weight(p["attn"]["wv"], rules, None, "kv_heads", dtype=dt)
-    q = apply_rope((xn @ wq).reshape(b, s, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
-    k = apply_rope((xn @ wk).reshape(b, s, cfg.n_kv_heads, cfg.hd), positions, cfg.rope_theta)
-    v = (xn @ wv).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if not _kv_split(cfg, rules):
+        wk, wv = tp_gather(wk, rules, "kv_heads", 1), tp_gather(wv, rules, "kv_heads", 1)
+    hl, kl = cfg.n_heads // n, wk.shape[1] // cfg.hd
+    q = apply_rope((xn @ wq).reshape(b, s, hl, cfg.hd), positions, cfg.rope_theta)
+    k = apply_rope((xn @ wk).reshape(b, s, kl, cfg.hd), positions, cfg.rope_theta)
+    v = (xn @ wv).reshape(b, s, kl, cfg.hd)
     return q, k, v
 
 
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, rules):
+    """The kv heads (B, S, K', hd) that this rank's q heads attend with:
+    `k` and `v` themselves where they are the rank's block; where every kv
+    head is held (``_kv_split`` false on a split mesh), the heads of the
+    rank's q heads' groups."""
+    n, r = _head_split(cfg, rules)
+    if n == 1 or _kv_split(cfg, rules):
+        return k, v
+    g, hl = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // n
+    if hl % g and g % hl:
+        raise ValueError(f"a block of {hl} q heads straddles kv groups of {g}")
+    lo, hi = r * hl // g, ((r + 1) * hl - 1) // g + 1
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
 def _attn_out(p, out: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
+    """The output projection of the rank's heads (B, S, heads, hd), summed
+    over the heads' axes."""
     b, s = out.shape[:2]
     wo = load_weight(p["attn"]["wo"], rules, "heads", None, dtype=out.dtype)
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ wo
+    return tp_sum(out.reshape(b, s, out.shape[2] * cfg.hd) @ wo, rules, "heads")
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +422,7 @@ def _attn_apply_train(p, x: torch.Tensor, positions: torch.Tensor, spec: LayerSp
                       segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
     xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, xn, positions, cfg, rules)
+    k, v = _kv_for_heads(k, v, cfg, rules)
     out = blockwise_attention(q, k, v, pattern=spec.attn_pattern, window=cfg.window,
                               chunk=cfg.chunk_size, causal=True,
                               segment_ids_q=segment_ids, segment_ids_kv=segment_ids)
@@ -382,9 +462,24 @@ def _backbone(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
 def _xent_block(params, hx: torch.Tensor, lx: torch.Tensor, mx: torch.Tensor,
                 cfg: ModelConfig, rules) -> Tuple[torch.Tensor, torch.Tensor]:
     logits = _logits_head(params, hx, cfg, rules).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lx[..., None].to(torch.int64))[..., 0]
     mx = mx.to(torch.float32)
+    axes = tp_axes(rules, "vocab")
+    if not axes:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lx[..., None].to(torch.int64))[..., 0]
+        return ((lse - gold) * mx).sum(), mx.sum()
+    # the rank's vocab block: the max over the ranks (no gradient: it
+    # cancels), the sum of exponentials over them, the gold logit from the
+    # rank that holds the label
+    m = logits.detach().amax(dim=-1)
+    for a in axes:
+        m = comm.pmax(m, rules.mesh, a)
+    lse = m + torch.log(tp_sum(torch.exp(logits - m[..., None]).sum(dim=-1), rules, "vocab"))
+    vl = logits.shape[-1]
+    local = lx.to(torch.int64) - tp_index(rules, "vocab") * vl
+    inside = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = tp_sum(torch.where(inside, gold, 0.0), rules, "vocab")
     return ((lse - gold) * mx).sum(), mx.sum()
 
 
@@ -471,10 +566,32 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: torch.device | str | None = None) -> Dict[str, Any]:
+               device: torch.device | str | None = None, rules=None) -> Dict[str, Any]:
+    """Zeroed caches of `batch` rows.  With meshed `rules`, `batch` is the
+    rank's rows and each leaf is the rank's block under ``cache_pspecs``."""
     device = resolve_device(device)
-    return {name: {k: torch.zeros(t.shape, dtype=t.dtype, device=device) for k, t in c.items()}
-            for name, c in cache_spec(cfg, batch, max_seq).items()}
+    shapes = cache_block_shapes(cfg, batch, max_seq, rules)
+    return {name: {k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in c.items()}
+            for name, c in shapes.items()}
+
+
+def cache_block_shapes(cfg: ModelConfig, batch: int, max_seq: int, rules=None, *,
+                       spec_fn=None, pspec_fn=None) -> Dict[str, Any]:
+    """(shape, dtype) of each cache leaf as this rank holds it: `batch` is
+    the rank's rows; `spec_fn` and `pspec_fn` are a model's ``cache_spec``
+    and ``cache_pspecs`` (this module's by default)."""
+    spec_fn, pspec_fn = spec_fn or cache_spec, pspec_fn or cache_pspecs
+    mesh = None if rules is None else rules.mesh
+    n_batch = 1 if mesh is None else spec_size(mesh, rules.pspec("batch")[0])
+    specs = None if mesh is None else pspec_fn(cfg, rules)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, None if spec is None else spec[k]) for k, v in node.items()}
+        shape = tuple(node.shape) if spec is None else block_shape(node.shape, mesh, spec)
+        return shape, node.dtype
+
+    return walk(spec_fn(cfg, batch * n_batch, max_seq), specs)
 
 
 def cache_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
@@ -496,31 +613,100 @@ def cache_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:
     return out
 
 
+def reshard_caches(caches: Dict[str, Any], cfg: ModelConfig, src_rules, dst_rules, *,
+                   pspec_fn=None) -> Dict[str, Any]:
+    """The rank's caches under `dst_rules`' ``cache_pspecs`` from its
+    caches under `src_rules`' (say a prefill shape's and a decode shape's
+    rules over one mesh): each leaf gathered over the mesh axes whose
+    place changes, then cut to the rank's block (``sharding.reshard``).
+    From the prefill rules to ``decode_32k``'s that is an all-gather of
+    the attention caches' kv heads over ``model`` (where they were split)
+    and this rank's slice of the sequence; the SSM caches keep their
+    layout and move nothing.  `pspec_fn` is the model's ``cache_pspecs``
+    (this module's by default)."""
+    pspec_fn = pspec_fn or cache_pspecs
+    src, dst = pspec_fn(cfg, src_rules), pspec_fn(cfg, dst_rules)
+    mesh = dst_rules.mesh
+
+    def walk(node, a, b):
+        if isinstance(node, dict):
+            return {k: walk(v, a[k], b[k]) for k, v in node.items()}
+        return reshard(node, mesh, a, b)
+
+    return walk(caches, src, dst)
+
+
+def decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, valid: torch.Tensor,
+                  cfg: ModelConfig, rules, mesh, cp_axis: Optional[str], **kw) -> torch.Tensor:
+    """One token's attention of the rank's q heads (B, 1, heads, hd) over
+    the rank's caches (B, S, K', hd): plain, or context-parallel over
+    `cp_axis` (the caches then hold the rank's slice of the sequence).
+    Where `cp_axis` also splits the heads, the caches hold every kv head:
+    q's heads are gathered over it and each rank keeps its own from the
+    combined result."""
+    if cp_axis is None:
+        kc, vc = _kv_for_heads(kc, vc, cfg, rules)
+        return decode_attention(q, kc, vc, valid, **kw)
+    heads_on_axis = cp_axis in tp_axes(rules, "heads")
+    if not heads_on_axis:
+        kc, vc = _kv_for_heads(kc, vc, cfg, rules)
+        return cp_decode_attention(q, kc, vc, valid, mesh=mesh, axis=cp_axis, **kw)
+    if tp_axes(rules, "heads") != (cp_axis,):
+        raise ValueError(f"heads split over {tp_axes(rules, 'heads')}, the sequence over "
+                         f"{cp_axis}")
+    hl = q.shape[2]
+    out = cp_decode_attention(tp_gather(q, rules, "heads", 2), kc, vc, valid, mesh=mesh,
+                              axis=cp_axis, **kw)
+    r = tp_index(rules, "heads")
+    return out[:, :, r * hl:(r + 1) * hl]
+
+
+def write_token_kv(lcache: Dict[str, torch.Tensor], kt: torch.Tensor, vt: torch.Tensor,
+                   cache_len: int, cfg: ModelConfig, rules, mesh,
+                   cp_axis: Optional[str]) -> None:
+    """Write the token's k and v (B, 1, K', hd) at `cache_len` of the
+    rank's caches (B, S, K'', hd): at the local index on the rank whose
+    slice holds it under `cp_axis`, after gathering the kv heads where the
+    caches hold every head and the projections gave the rank's block."""
+    if cp_axis is not None and lcache["k"].shape[2] != kt.shape[2]:
+        kt, vt = tp_gather(kt, rules, "kv_heads", 2), tp_gather(vt, rules, "kv_heads", 2)
+    owner, local = (0, cache_len) if cp_axis is None else divmod(cache_len, lcache["k"].shape[1])
+    if cp_axis is None or mesh.coords[cp_axis] == owner:
+        lcache["k"][:, local] = kt[:, 0]
+        lcache["v"][:, local] = vt[:, 0]
+
+
 def _attn_decode(p, x: torch.Tensor, lcache: Dict[str, torch.Tensor], cache_len: int,
                  spec: LayerSpec, cfg: ModelConfig, rules, mesh=None,
-                 cp: bool = False) -> torch.Tensor:
+                 cp_axis: Optional[str] = None) -> torch.Tensor:
     """One attention layer of a decode step; writes the token's k and v at
     `cache_len` of `lcache` (this period's (B, max_seq, K, hd) views, or
-    under `cp` this rank's (B, S_local, K, hd) slices: written only where
-    the slice holds `cache_len`)."""
+    under `cp_axis` this rank's (B, S_local, K', hd) slices: written only
+    where the slice holds `cache_len`)."""
     b = x.shape[0]
     xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
     pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=x.device)
     q, kt, vt = _qkv(p, xn, pos, cfg, rules)
     valid = torch.full((b,), cache_len + 1, dtype=torch.int32, device=x.device)
-    kw = dict(pattern=spec.attn_pattern, window=cfg.window, chunk=cfg.chunk_size)
-    if cp:
-        owner, local = divmod(cache_len, lcache["k"].shape[1])
-        if mesh.coords["data"] == owner:
-            lcache["k"][:, local] = kt[:, 0]
-            lcache["v"][:, local] = vt[:, 0]
-        out = cp_decode_attention(q, lcache["k"], lcache["v"], valid, mesh=mesh, axis="data",
-                                  **kw)
-    else:
-        lcache["k"][:, cache_len] = kt[:, 0]
-        lcache["v"][:, cache_len] = vt[:, 0]
-        out = decode_attention(q, lcache["k"], lcache["v"], valid, **kw)
+    write_token_kv(lcache, kt, vt, cache_len, cfg, rules, mesh, cp_axis)
+    out = decode_attend(q, lcache["k"], lcache["v"], valid, cfg, rules, mesh, cp_axis,
+                        pattern=spec.attn_pattern, window=cfg.window, chunk=cfg.chunk_size)
     return x + _attn_out(p, out, cfg, rules)
+
+
+def cp_axis_of(rules, mesh, shard_kv_seq: bool, has_attn: bool) -> Optional[str]:
+    """The mesh axis that splits the caches' sequence in decode: ``data``
+    for context-parallel decode (`shard_kv_seq` on a mesh with a ``data``
+    axis), else the axis ``kv_seq`` maps to under `rules` if it has more
+    than one rank, else None."""
+    if not has_attn:
+        return None
+    if shard_kv_seq and mesh is not None and "data" in mesh.axis_names:
+        return "data"
+    seq = live_axes(rules, rules.pspec("kv_seq")[0])
+    if len(seq) > 1:
+        raise ValueError(f"the caches' sequence splits over {seq}: decode takes one axis")
+    return seq[0] if seq else None
 
 
 def decode_step(
@@ -537,17 +723,20 @@ def decode_step(
     """One serve step: next-token logits, and `caches` with the token's k
     and v (attention) or state and conv window (mamba) written in place
     (C11: raises at ``cache_len >= max_seq`` where there is a KV cache).
-    With `shard_kv_seq` on a mesh with a ``data`` axis, `caches` hold this
-    rank's slices of the sequence and decode is context-parallel (the
-    module says how)."""
+    With `shard_kv_seq` on a mesh with a ``data`` axis, or rules that map
+    ``kv_seq`` to a mesh axis, `caches` hold this rank's slices of the
+    sequence and decode is context-parallel (the module says how).  On a
+    mesh the logits are the rank's vocab block (``gather_logits``)."""
     period = cfg.period()
     has_attn = any(spec.kind == "attn" for spec in period)
-    cp = bool(shard_kv_seq) and mesh is not None and "data" in mesh.axis_names and has_attn
-    if cp and rules.mesh is not None and "data" in entry_axes(rules.pspec("batch")[0]):
+    mesh = rules.mesh if mesh is None else mesh
+    cp_axis = cp_axis_of(rules, mesh, bool(shard_kv_seq), has_attn)
+    if (cp_axis == "data" and rules.mesh is not None
+            and "data" in entry_axes(rules.pspec("batch")[0])):
         raise ValueError("context-parallel decode holds the whole batch on every rank; "
                          "these rules shard it over 'data' (use launch.specs.shape_rules)")
     n = int(cache_len)
-    n_slices = mesh.shape["data"] if cp else 1
+    n_slices = 1 if cp_axis is None else mesh.shape[cp_axis]
     for name, c in caches.items():
         if "k" not in c:
             continue
@@ -562,7 +751,7 @@ def decode_step(
             lp = pparams[f"p{i}"]
             lcache = {k: t[j] for k, t in caches[f"p{i}"].items()}
             if spec.kind == "attn":
-                h = _attn_decode(lp, h, lcache, n, spec, cfg, rules, mesh, cp)
+                h = _attn_decode(lp, h, lcache, n, spec, cfg, rules, mesh, cp_axis)
             else:
                 xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
                 dh, _ = ssm.mamba_decode_step(lp["mamba"], xn, cfg, rules, lcache)
@@ -584,9 +773,12 @@ def prefill_hidden(
     b, s = tokens.shape
     if s > max_seq:
         raise ValueError(f"a prompt of {s} tokens does not fit a cache of {max_seq}")
+    if rules.mesh is not None and live_axes(rules, rules.pspec("kv_seq")[0]):
+        raise ValueError("prefill fills caches whose sequence is whole: prefill under rules "
+                         "with kv_seq unmapped, then reshard_caches")
     h = _embed_tokens(params, tokens, cfg, rules)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    caches = init_cache(cfg, b, max_seq, tokens.device)
+    caches = init_cache(cfg, b, max_seq, tokens.device, rules)
     for j in range(cfg.n_periods):
         pparams = _period(params["layers"], j)
         for i, spec in enumerate(cfg.period()):
@@ -595,16 +787,17 @@ def prefill_hidden(
             xn = rmsnorm(h, lp["ln1"], cfg.norm_eps)
             if spec.kind == "attn":
                 q, kk, vv = _qkv(lp, xn, positions, cfg, rules)
+                lcache["k"][j, :, :s] = kk
+                lcache["v"][j, :, :s] = vv
+                kk, vv = _kv_for_heads(kk, vv, cfg, rules)
                 out = blockwise_attention(q, kk, vv, pattern=spec.attn_pattern,
                                           window=cfg.window, chunk=cfg.chunk_size, causal=True)
                 h = h + _attn_out(lp, out, cfg, rules)
-                lcache["k"][j, :, :s] = kk
-                lcache["v"][j, :, :s] = vv
             else:
                 dh, h_t, conv = ssm.mamba_forward(lp["mamba"], xn, cfg, rules)
                 h = h + dh
                 lcache["h"][j] = h_t
-                lcache["conv"][j] = conv
+                lcache["conv"][j] = ssm.whole_window(conv, cfg, rules)
             del xn
             h, _ = _mlp_or_moe(lp, h, spec, cfg, rules)
     return rmsnorm(h, params["final_ln"], cfg.norm_eps), caches
@@ -618,7 +811,8 @@ def prefill(
     max_seq: int,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full forward that fills caches up to S; returns last-position logits
-    (B, 1, V).  Cache tensors are allocated at max_seq; positions [0, S)
+    (B, 1, V; on a mesh the rank's rows and vocab block, and the caches the
+    rank's blocks under ``cache_pspecs``).  Cache tensors are allocated at max_seq; positions [0, S)
     are written."""
     h, caches = prefill_hidden(params, tokens, cfg, rules, max_seq)
     return _logits_head(params, h[:, -1:, :], cfg, rules), caches

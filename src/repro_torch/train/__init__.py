@@ -5,6 +5,7 @@ and the elastic restart loop (over meshes too)."""
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import ElasticTrainer
 from repro_torch.train.optimizer import (
+    Layout,
     Optimizer,
     adafactor,
     adamw,
@@ -25,6 +26,7 @@ from repro_torch.train.step import (
 )
 
 __all__ = [
+    "Layout",
     "CheckpointManager",
     "ElasticTrainer",
     "Optimizer",

@@ -22,7 +22,12 @@ Under a mesh each rank updates its blocks of the parameters; the clip's
 global norm sums the squares of sharded leaves over their mesh axes and
 counts replicated leaves once (``sq_sum``, built by
 ``train.step.mesh_sq_sum``), the norm of the global gradient that the
-reference takes.
+reference takes.  AdamW is elementwise and needs nothing more.  Adafactor
+takes the leaves' ``Layout`` (the mesh and each leaf's spec): a leaf is
+factored by its global shape, its row and column means over a split axis
+are sums over the axis's ranks divided by the whole length, and its RMS
+clip takes the squares summed over every axis the leaf is split over and
+the whole leaf's count.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ import math
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import entry_axes
 
 Tensors = Dict[str, torch.Tensor]
 SqSum = Callable[[Tensors], torch.Tensor]  # per-leaf squares -> global sum
@@ -120,12 +128,39 @@ def clip_by_global_norm(
 
 
 @dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a rank's leaves lie on a mesh: the mesh and each leaf's spec
+    (by name).  A leaf's block is its global tensor cut evenly by its
+    spec."""
+
+    mesh: Any
+    specs: Dict[str, tuple]
+
+    def axes(self, name: str, dim: int) -> Tuple[str, ...]:
+        """The mesh axes (of more than one rank) that split axis `dim`
+        (counted from 0) of leaf `name`."""
+        spec = tuple(self.specs[name])
+        entry = spec[dim] if dim < len(spec) else None
+        return tuple(a for a in entry_axes(entry) if self.mesh.shape[a] > 1)
+
+    def global_shape(self, name: str, shape) -> Tuple[int, ...]:
+        spec = tuple(self.specs[name]) + (None,) * (len(shape) - len(self.specs[name]))
+        return tuple(n * math.prod(self.mesh.shape[a] for a in entry_axes(e))
+                     for n, e in zip(shape, spec))
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        for a in axes:
+            x = comm.psum(x, self.mesh, a)
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
 class Optimizer:
-    # params (name -> tensor) -> state
-    init: Callable[[Tensors], Dict[str, Any]]
-    # (grads, state, params[, sq_sum]) -> (state, metrics); params, state
-    # and grads are updated in place; under a mesh, sq_sum makes the clip's
-    # norm the global one
+    # (params (name -> tensor)[, layout]) -> state
+    init: Callable[..., Dict[str, Any]]
+    # (grads, state, params[, sq_sum, layout]) -> (state, metrics); params,
+    # state and grads are updated in place; under a mesh, sq_sum makes the
+    # clip's norm the global one and layout (a ``Layout``) places the leaves
     update: Callable[..., Tuple[Dict[str, Any], Tensors]]
 
 
@@ -133,7 +168,7 @@ def adamw(
     lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     weight_decay: float = 0.0, clip_norm: float = 1.0,
 ) -> Optimizer:
-    def init(params: Tensors) -> Dict[str, Any]:
+    def init(params: Tensors, layout: Layout | None = None) -> Dict[str, Any]:
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
         device = next(iter(params.values())).device
         return {
@@ -144,7 +179,7 @@ def adamw(
 
     @torch.no_grad()
     def update(grads: Tensors, state: Dict[str, Any], params: Tensors,
-               sq_sum: SqSum | None = None):
+               sq_sum: SqSum | None = None, layout: Layout | None = None):
         with torch.profiler.record_function("adamw"):
             scale, gnorm = _clip_scale(grads, clip_norm, sq_sum)
             count = state["count"] + 1
@@ -186,10 +221,14 @@ def _adafactor_chunks(shape, factored: bool):
     return [(slice(i, i + 1), slice(j, min(j + k, r))) for i in range(m) for j in range(0, r, k)]
 
 
-def _adafactor_leaf(g, st, p, scale, beta, neg_lr, eps: float, factored: bool) -> None:
+def _adafactor_leaf(g, st, p, scale, beta, neg_lr, eps: float, factored: bool,
+                    split=None) -> None:
     """One leaf's Adafactor update, in place: the clip into `g`, the
-    second-moment state into `st`, the update into `p` (see the module)."""
+    second-moment state into `st`, the update into `p` (see the module).
+    `split` places a rank's block of the leaf: (layout, the leaf's name,
+    its global shape); the means and the RMS then sum over the ranks."""
     shape = tuple(p.shape)
+    layout, name, whole = split if split is not None else (None, None, shape)
     if factored:
         m, r, c = math.prod(shape[:-2]), shape[-2], shape[-1]
         g3, p3 = g.view(m, r, c), p.view(m, r, c)
@@ -200,19 +239,30 @@ def _adafactor_leaf(g, st, p, scale, beta, neg_lr, eps: float, factored: bool) -
     chunks = _adafactor_chunks(shape, factored)
     gscale = scale.to(g.dtype)  # the reference clips in the gradient's dtype
     colsum = torch.zeros((m, c), dtype=torch.float32, device=g.device) if factored else None
+    row_axes = col_axes = ()
+    if layout is not None and factored:
+        row_axes, col_axes = layout.axes(name, len(shape) - 1), layout.axes(name, len(shape) - 2)
 
     # pass 1: the clip and the second-moment state
     for idx in chunks:
         gc = g3[idx].mul_(gscale).to(torch.float32)
         g2 = gc.square().add_(eps)
         if factored:
-            vr[idx].mul_(beta).add_(g2.mean(dim=-1).mul_(1 - beta))
+            if row_axes:  # the row mean over the ranks' columns
+                rmean_g2 = layout.psum(g2.sum(dim=-1), row_axes).div_(whole[-1])
+            else:
+                rmean_g2 = g2.mean(dim=-1)
+            vr[idx].mul_(beta).add_(rmean_g2.mul_(1 - beta))
             colsum[idx[0]] += g2.sum(dim=-2)
         else:
             v[idx].mul_(beta).add_(g2.mul_(1 - beta))
     if factored:
-        vc.mul_(beta).add_(colsum.div_(r).mul_(1 - beta))
-        rmean = torch.clamp_min(vr.mean(dim=-1), eps)
+        colsum = layout.psum(colsum, col_axes) if col_axes else colsum
+        vc.mul_(beta).add_(colsum.div_(whole[-2]).mul_(1 - beta))
+        if col_axes:
+            rmean = torch.clamp_min(layout.psum(vr.sum(dim=-1), col_axes) / whole[-2], eps)
+        else:
+            rmean = torch.clamp_min(vr.mean(dim=-1), eps)
 
     def pre_of(idx):
         gc = g3[idx].to(torch.float32)
@@ -227,7 +277,10 @@ def _adafactor_leaf(g, st, p, scale, beta, neg_lr, eps: float, factored: bool) -
         pre = pre_of(idx)
         sq = sq + torch.sum(pre * pre)
         kept = pre if len(chunks) == 1 else None
-    clip = torch.clamp_min(torch.sqrt(sq / max(p.numel(), 1) + 1e-12), 1.0)
+    if layout is not None:
+        every = tuple(a for d in range(len(shape)) for a in layout.axes(name, d))
+        sq = layout.psum(torch.as_tensor(sq, dtype=torch.float32, device=p.device), every)
+    clip = torch.clamp_min(torch.sqrt(sq / max(math.prod(whole), 1) + 1e-12), 1.0)
     # pass 3: p += (-lr * pre / max(1, rms)) in the parameter's dtype
     for idx in chunks:
         pre = kept if kept is not None else pre_of(idx)
@@ -243,32 +296,37 @@ def adafactor(
     second-to-last axis) where both of its last two axes reach
     `min_dim_size_to_factor`, else ``{"v"}`` of its shape."""
 
-    def factored(p) -> bool:
-        return (p.dim() >= 2 and p.shape[-1] >= min_dim_size_to_factor
-                and p.shape[-2] >= min_dim_size_to_factor)
+    def factored(shape) -> bool:
+        return (len(shape) >= 2 and shape[-1] >= min_dim_size_to_factor
+                and shape[-2] >= min_dim_size_to_factor)
 
-    def init(params: Tensors) -> Dict[str, Any]:
-        def st(p):
+    def whole(name, p, layout):
+        return tuple(p.shape) if layout is None else layout.global_shape(name, p.shape)
+
+    def init(params: Tensors, layout: Layout | None = None) -> Dict[str, Any]:
+        def st(name, p):
             zeros = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)  # noqa: E731
-            if factored(p):
+            if factored(whole(name, p, layout)):
                 return {"vr": zeros(p.shape[:-1]), "vc": zeros(p.shape[:-2] + p.shape[-1:])}
             return {"v": zeros(p.shape)}
 
         device = next(iter(params.values())).device
-        return {"f": {k: st(p) for k, p in params.items()},
+        return {"f": {k: st(k, p) for k, p in params.items()},
                 "count": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
     def update(grads: Tensors, state: Dict[str, Any], params: Tensors,
-               sq_sum: SqSum | None = None):
+               sq_sum: SqSum | None = None, layout: Layout | None = None):
         with torch.profiler.record_function("adafactor"):
             scale, gnorm = _clip_scale(grads, clip_norm, sq_sum)
             count = state["count"] + 1
             lr = lr_fn(count).to(scale.device)
             beta = 1.0 - count.to(torch.float32) ** -decay
             for name, p in params.items():
+                shape = whole(name, p, layout)
                 _adafactor_leaf(grads[name], state["f"][name], p, scale, beta, -lr, eps,
-                                factored(p))
+                                factored(shape),
+                                None if layout is None else (layout, name, shape))
             return dict(state, count=count), {"grad_norm": gnorm, "lr": lr}
 
     return Optimizer(init, update)

@@ -17,13 +17,17 @@ becomes ``.grad`` with no copy, and further microbatches add into it.
 
 Under a mesh (``rules`` with a ``launch.mesh.Mesh``) each rank holds its
 blocks of the parameters (``param_specs``, e.g.
-``models.recsys.flat_param_pspecs``) and of the optimizer state (``m`` and
-``v`` inherit their parameter's spec: ``opt_state_pspecs``), and its rows
-of the batch.  Each rank's loss is its rows' mean; the gradients are
-averaged over the batch axes, replicated leaves and table blocks alike
-(``average_grads``), before the clip's global norm (``mesh_sq_sum``) and
-the update.  The metrics' loss and accuracy are the means over the batch
-axes, the global batch's.
+``models.recsys.flat_param_pspecs``) and of the optimizer state, and its
+rows of the batch.  The state is laid out as the reference lays it
+(``opt_state_pspecs``: a leaf takes the spec of the first parameter of its
+shape, whichever parameter it belongs to, so h2o-danube's ``m`` of ``wq``
+takes ``wo``'s spec); the step moves each leaf whose spec is not its own
+parameter's (``natural_opt_specs``) to that layout for the update and back
+(``relayout``), and ``init_state(..., layout=)`` starts it so.  Each rank's
+loss is its rows' mean; the gradients are averaged over the batch axes,
+replicated leaves and table blocks alike (``average_grads``), before the
+clip's global norm (``mesh_sq_sum``) and the update.  The metrics' loss and
+accuracy are the means over the batch axes, the global batch's.
 """
 
 from __future__ import annotations
@@ -35,9 +39,9 @@ import torch
 from torch import nn
 
 from repro_torch.distributed import comm
-from repro_torch.distributed.sharding import entry_axes, spec_axes
+from repro_torch.distributed.sharding import entry_axes, reshard, spec_axes
 from repro_torch.train.compression import crosspod_compressed_mean, init_error_state
-from repro_torch.train.optimizer import Optimizer, SqSum
+from repro_torch.train.optimizer import Layout, Optimizer, SqSum
 
 TrainState = Dict[str, Any]
 Metrics = Dict[str, torch.Tensor]
@@ -50,14 +54,23 @@ def apply_updates(params: Dict[str, torch.Tensor], updates: Dict[str, torch.Tens
             p.add_(updates[name].to(p.dtype))
 
 
-def init_state(model: nn.Module, optimizer: Optimizer, *, with_err: bool = False) -> TrainState:
+def init_state(model: nn.Module, optimizer: Optimizer, *, with_err: bool = False,
+               layout: Optional[Layout] = None) -> TrainState:
     """The state of step 0 around an initialized model (with the zero
-    error feedback of the compressed step when `with_err`)."""
+    error feedback of the compressed step when `with_err`).  On a mesh
+    `layout` places the model's blocks (``optimizer.Layout``), and the
+    optimizer state is held as the reference lays it out
+    (``opt_state_pspecs``), which the meshed step expects."""
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
+    if layout is None:
+        opt = optimizer.init(params)
+    else:
+        ref, nat = opt_layouts(optimizer, layout, params)
+        opt = relayout(optimizer.init(params, layout), layout.mesh, nat, ref)
     state = {
         "params": model,
-        "opt": optimizer.init(params),
+        "opt": opt,
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
     if with_err:
@@ -67,20 +80,78 @@ def init_state(model: nn.Module, optimizer: Optimizer, *, with_err: bool = False
 
 def opt_state_pspecs(optimizer: Optimizer, params: Dict[str, torch.Tensor],
                      param_specs: Dict[str, tuple]) -> Dict[str, Any]:
-    """Specs of the optimizer state: a leaf of its parameter's shape
-    inherits the parameter's spec; scalars replicate."""
+    """Specs of the optimizer state from the parameters' global shapes, by
+    the reference's shape matching: a state leaf takes the spec of the
+    first parameter (in the reference's tree order: sorted paths) of its
+    shape, whichever parameter it belongs to; a factored leaf (an Adafactor
+    row or column mean) the spec of the first parameter of which it is the
+    shape with the last axis, or the second-to-last, dropped, that axis's
+    entry dropped with it; scalars and unmatched leaves replicate."""
     state = optimizer.init({k: torch.empty(p.shape, device="meta") for k, p in params.items()})
+    by_shape: Dict[tuple, tuple] = {}
+    for name in sorted(params, key=lambda k: k.split(".")):
+        by_shape.setdefault(tuple(params[name].shape), tuple(param_specs[name]))
 
-    def match(node, name=None):
+    def match(node):
         if isinstance(node, dict):
-            return {k: match(v, k if name is None else name) for k, v in node.items()}
-        if node.dim() == 0:
+            return {k: match(v) for k, v in node.items()}
+        shape = tuple(node.shape)
+        if shape == ():
             return ()
-        if name in params and tuple(node.shape) == tuple(params[name].shape):
-            return param_specs[name]
+        if shape in by_shape:
+            return by_shape[shape]
+        for pshape, spec in by_shape.items():
+            axes = list(spec) + [None] * (len(pshape) - len(spec))
+            if shape == pshape[:-1]:
+                return tuple(axes[:-1])
+            if shape == pshape[:-2] + pshape[-1:]:
+                return tuple(axes[:-2] + axes[-1:])
         return ()
 
-    return {key: match(node) for key, node in state.items()}
+    return match(state)
+
+
+def natural_opt_specs(optimizer: Optimizer, params: Dict[str, torch.Tensor],
+                      param_specs: Dict[str, tuple]) -> Dict[str, Any]:
+    """Specs of the optimizer state as the update reads it: each leaf takes
+    its own parameter's spec (a row mean ``vr`` without the last axis's
+    entry, a column mean ``vc`` without the second-to-last's); scalars
+    replicate."""
+    state = optimizer.init({k: torch.empty(p.shape, device="meta") for k, p in params.items()})
+
+    def match(node, key=None, name=None):
+        if isinstance(node, dict):
+            return {k: match(v, k, k if k in params else name) for k, v in node.items()}
+        if node.dim() == 0 or name is None:
+            return ()
+        spec = tuple(param_specs[name]) + (None,) * (params[name].dim() - len(param_specs[name]))
+        if key == "vr":
+            return spec[:-1]
+        if key == "vc":
+            return spec[:-2] + spec[-1:]
+        return spec
+
+    return match(state)
+
+
+def relayout(tree: Dict[str, Any], mesh, src: Dict[str, Any], dst: Dict[str, Any]):
+    """`tree`'s blocks moved from the spec tree `src` to `dst`
+    (``sharding.reshard`` where a leaf's specs differ; the leaf itself
+    where they agree)."""
+    if isinstance(tree, dict):
+        return {k: relayout(v, mesh, src[k], dst[k]) for k, v in tree.items()}
+    return reshard(tree, mesh, src, dst)
+
+
+def opt_layouts(optimizer: Optimizer, layout: Layout,
+                params: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(the reference's specs of the optimizer state, ``opt_state_pspecs``;
+    the update's, ``natural_opt_specs``) for a rank's parameter blocks
+    `params` placed by `layout`."""
+    whole = {k: torch.empty(layout.global_shape(k, p.shape), device="meta")
+             for k, p in params.items()}
+    return (opt_state_pspecs(optimizer, whole, layout.specs),
+            natural_opt_specs(optimizer, whole, layout.specs))
 
 
 def state_shardings(optimizer: Optimizer, params: Dict[str, torch.Tensor],
@@ -149,11 +220,18 @@ def _mean_metrics(metrics: Metrics, mesh, axes: Tuple[str, ...]) -> Metrics:
 
 
 def _grads_and_update(
-    state: TrainState, optimizer: Optimizer, metrics: Metrics, sq_sum: Optional[SqSum] = None
+    state: TrainState, optimizer: Optimizer, metrics: Metrics, sq_sum: Optional[SqSum] = None,
+    layout: Optional[Layout] = None,
 ) -> Tuple[TrainState, Metrics]:
     params = dict(state["params"].named_parameters())
     grads = {k: p.grad for k, p in params.items()}
-    opt, om = optimizer.update(grads, state["opt"], params, sq_sum)
+    if layout is None:
+        opt, om = optimizer.update(grads, state["opt"], params, sq_sum)
+    else:  # the update reads each leaf in its parameter's layout
+        ref, nat = opt_layouts(optimizer, layout, params)
+        work = relayout(state["opt"], layout.mesh, ref, nat)
+        opt, om = optimizer.update(grads, work, params, sq_sum, layout=layout)
+        opt = relayout(opt, layout.mesh, nat, ref)
     return dict(state, opt=opt, step=state["step"] + 1), {**metrics, **om}
 
 
@@ -197,7 +275,7 @@ def make_train_step(
         axes = _batch_axes(rules)
         average_grads(dict(model.named_parameters()), param_specs, mesh, axes)
         return _grads_and_update(state, optimizer, _mean_metrics(metrics, mesh, axes),
-                                 mesh_sq_sum(mesh, param_specs))
+                                 mesh_sq_sum(mesh, param_specs), Layout(mesh, param_specs))
 
     return train_step
 
@@ -236,7 +314,7 @@ def make_compressed_train_step(
         for k, p in params.items():
             p.grad = grads[k]
         new, om = _grads_and_update(state, optimizer, _mean_metrics(metrics, mesh, axes),
-                                    mesh_sq_sum(mesh, param_specs))
+                                    mesh_sq_sum(mesh, param_specs), Layout(mesh, param_specs))
         return dict(new, err=err), om
 
     return train_step

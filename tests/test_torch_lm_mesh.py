@@ -328,12 +328,23 @@ def test_cp_decode_c11_at_the_global_length(world, name):
 
 @pytest.mark.parametrize("name", list(CP_ARCHS))
 def test_cp_decode_moves_one_pmax_and_two_psums_a_layer(world, name):
+    """Besides the attention's combine, a step gathers each FSDP weight it
+    reads over ``data`` once (the weights are the ranks' blocks of the
+    reference's layout; ``model`` has one rank)."""
+    from repro_torch.launch.specs import shape_rules
+    from repro_torch.models.config import SHAPES
+
     cfg = PR.get_arch(CP_ARCHS[name]).reduced
     n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.period())
     b, k, g, d = 2, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1}, axis_names=("data", "model"))
+    specs = T.flat_rank_param_pspecs(cfg, shape_rules(cfg, SHAPES["long_500k"], mesh))
+    gathers = sum(cfg.n_periods if n.startswith("layers.") else 1
+                  for n, sp in specs.items() if "data" in S.spec_axes(sp))
     for r in world:
         for nbytes, calls in zip(r[name]["bytes"], r[name]["calls"]):
-            assert calls["all-reduce"] == 3 * n_attn and sum(calls.values()) == 3 * n_attn
+            assert calls["all-reduce"] == 3 * n_attn and calls["all-gather"] == gathers
+            assert sum(calls.values()) == 3 * n_attn + gathers
             assert nbytes["all-reduce"] == n_attn * 4 * (2 * b * k * g + b * k * g * d)
 
 
@@ -465,7 +476,7 @@ def test_expert_parallel_layer_and_aux_match(world, ref, one_device):
 
 
 def _block(name, g, rank, cfg):
-    """The rank's block of a one-device leaf under ``rank_param_pspecs``."""
+    """The rank's block of a one-device leaf under ``param_pspecs``."""
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 1}, axis_names=("data", "model"),
                                  coords={"data": rank, "model": 0})
     rules = S.ShardingRules.make(mesh, dict(PR.get_arch(R.MOE_RULE_ARCH).config
@@ -494,7 +505,10 @@ def test_expert_parallel_train_step_matches_one_device_microbatches(world, one_d
     for rank, r in enumerate(world):
         tr = r["moe"]["train"]
         split = [n for n, g in tr["grads"].items() if g.shape != one_device["grads"][n].shape]
-        assert split and all(n.endswith(("w_gate", "w_up", "w_down")) for n in split)
+        specs = T.flat_rank_param_pspecs(cfg, R.moe_rules(types.SimpleNamespace(
+            shape={"data": 2, "model": 1}, axis_names=("data", "model"))))
+        assert sorted(split) == sorted(n for n, sp in specs.items() if "data" in S.spec_axes(sp))
+        assert any(n.endswith(("w_gate", "w_up", "w_down")) for n in split)
         for name, g in tr["grads"].items():
             close(g, _block(name, one_device["grads"][name], rank, cfg))
             close(tr["params"][name], _block(name, one_device["params"][name], rank, cfg))

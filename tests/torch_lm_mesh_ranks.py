@@ -20,7 +20,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import SHAPES, ModelConfig
 from repro_torch.models.layers import ParamTree, cp_decode_attention
-from repro_torch.train import make_optimizer, make_train_step
+from repro_torch.train import Layout, init_state, make_optimizer, make_train_step
 
 LR = 1e-3  # the one update's constant learning rate
 MOE_RULE_ARCH = "llama4-maverick-400b-a17b"  # whose full config's expert rule the MoE cases take
@@ -62,7 +62,7 @@ def cp_decode_case(mesh, arch: str, tree, caches, token, start: int, steps: int)
     rank's caches after, and C11 at the global length."""
     cfg = get_arch(arch).reduced
     rules = shape_rules(cfg, SHAPES["long_500k"], mesh)
-    params = T.params_from_numpy(tree, cfg, "cpu")
+    params = T.rank_params(T.params_from_numpy(tree, cfg, "cpu"), cfg, rules)
     specs = T.cache_pspecs(cfg, rules)
     local = {name: {k: shard(torch.from_numpy(a), mesh, specs[name][k]).clone()
                     for k, a in c.items()} for name, c in caches.items()}
@@ -126,9 +126,10 @@ def moe_case(mesh, tree, prompts, steps: int, batch: dict, x) -> dict:
 
     model = ParamTree(T.rank_params(T.params_from_numpy(tree, cfg, "cpu"), cfg, rules))
     opt = make_optimizer("adamw", lambda step: torch.full((), LR))
-    state = {"params": model, "opt": opt.init(dict(model.named_parameters())), "step": 0}
+    specs = T.flat_rank_param_pspecs(cfg, rules)
+    state = init_state(model, opt, layout=Layout(mesh, specs))
     step = make_train_step(lambda m, b: T.loss_fn(m.tree(), b, cfg, rules), opt, rules=rules,
-                           param_specs=T.flat_rank_param_pspecs(cfg, rules))
+                           param_specs=specs)
     local = {k: shard(torch.from_numpy(v), mesh, rules.pspec("batch", None))
              for k, v in batch.items()}
     mesh.counter.reset()

@@ -171,9 +171,9 @@ def recording(opt: Optimizer, seen: list) -> Optimizer:
     """`opt`, keeping a copy of the gradients each update receives (the
     update scales them in place)."""
 
-    def update(grads, state, params, sq_sum=None):
+    def update(grads, state, params, sq_sum=None, **kw):
         seen.append({k: g.detach().clone().numpy() for k, g in grads.items()})
-        return opt.update(grads, state, params, sq_sum)
+        return opt.update(grads, state, params, sq_sum, **kw)
 
     return Optimizer(opt.init, update)
 
