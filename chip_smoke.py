@@ -403,8 +403,8 @@ LM_EP_TRAIN, LM_EP_TRAIN_TOL = (4, 128), 1e-5
 # the LM's tensor-parallel and FSDP layout (phase_lm_tp), the reference's
 # GSPMD layout run by ranks sharing the card over gloo-staged, each witness
 # run in this process first and freed before the spawn: (r) h2o-danube-1.8b
-# training at full width on LM_TP_MESH (data, model), bf16 compute, "dots"
-# remat, LM_TP_TRAIN (batch, seq, AdamW steps) against the one-device step
+# training at full width on LM_TP_MESH (data, model), bf16 compute,
+# LM_TP_REMAT, LM_TP_TRAIN (batch, seq, AdamW steps) against the one-device step
 # over LM_TP_MESH[0] microbatches (the data ranks' rows: the same
 # function): the loss within LM_TP_LOSS_TOL, the gradient norm within
 # LM_TP_NORM_TOL of it, every updated parameter block within 2 lr a step (an
@@ -417,8 +417,13 @@ LM_EP_TRAIN, LM_EP_TRAIN_TOL = (4, 128), 1e-5
 # run of every production cell
 LM_TP_MESH = (2, 2)
 LM_TP_TRAIN = (4, 4096, 2)
+# (r)'s remat: "full", not h2o's "dots" that the witness ran (the same
+# function, bitwise on the CPU, and the same collectives: both stop the
+# recompute before the MLP's sum); "dots" keeps ~5.5 GB more a rank, and
+# four ranks at 17 GiB with their contexts ran the 80 GB card out of memory
+LM_TP_REMAT = "full"
 LM_TP_LOSS_TOL, LM_TP_NORM_TOL = 0.02, 0.01
-LM_TP_SERVE = (4, 8192, 2)
+LM_TP_SERVE = (4, 4096, 2)  # a prompt of 8,192 until the script neared its 1,200 s
 LM_TP_SAMPLE = 1 << 16  # elements of each parameter block (r) brings back, evenly spaced
 LM_TP_JAMBA = (4, 4096, 16)
 E2E_STEPS = 40  # train_recsys_e2e's steps on the card
@@ -2067,6 +2072,60 @@ def train_split(prof) -> float | None:
     return busy / 1e3
 
 
+class HostWatch:
+    """The least host memory available (``MemAvailable``) while the block
+    runs, sampled every quarter second by a thread."""
+
+    def __enter__(self):
+        self.before = self.least = host_free_bytes()
+        self.parent_rss = rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.25):
+            self.least = min(self.least, host_free_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def rss_bytes() -> int | None:
+    """This process's resident bytes now (``VmRSS``), None where the kernel
+    does not say (``ru_maxrss`` is no help: a spawned rank keeps its
+    spawner's mark across the exec)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    return None
+
+
+def rank_memory(dev) -> dict:
+    """A rank's host RSS at the end of its run, the card's most reserved
+    bytes, and the most pinned bytes its host allocator held (the staged
+    collectives' buffers; None where this PyTorch does not count them)."""
+    try:
+        stats = torch.cuda.host_memory_stats()
+    except (AttributeError, RuntimeError):  # a PyTorch without the pinned allocator's stats
+        stats = {}
+    return {"rss": rss_bytes(),
+            "reserved": torch.cuda.max_memory_reserved(dev),
+            "pinned": stats.get("allocated_bytes.all.peak", stats.get("allocated_bytes.peak"))}
+
+
+def memory_line(tag: str, watch: HostWatch, mems: list) -> str:
+    """`tag`'s world: the host's memory around it and the ranks'
+    ``rank_memory`` marks `mems`, by rank."""
+    return (f"{tag}: host memory available {watch.before} bytes before the spawn (this "
+            f"process's RSS {watch.parent_rss}), least {watch.least} during the world; by "
+            f"rank: RSS at the end {[m['rss'] for m in mems]}, "
+            f"card bytes reserved at most {[m['reserved'] for m in mems]}, pinned host bytes "
+            f"{[m['pinned'] for m in mems]}")
+
+
 def host_free_bytes() -> int:
     """The host's available memory (``MemAvailable``), in bytes."""
     for line in Path("/proc/meminfo").read_text().splitlines():
@@ -3696,8 +3755,9 @@ def lm_train_h2o(dev, card: str) -> dict:
         if i < tp_n:
             tp_want.append({"loss": float(torch.stack(mb_losses[-k:]).mean()),
                             "grad_norm": metrics["grad_norm"], "lr": metrics["lr"],
-                            "params": {n: p.detach().to("cpu", torch.float32, copy=True)
-                                       for n, p in model.named_parameters()}})
+                            "top": max(float(p.detach().abs().max())
+                                       for p in model.parameters()),
+                            "blocks": tp_block_samples(dict(model.named_parameters()), cfg)})
         mb_losses.clear()
 
     mm, _ = matmul_params(cfg, model)
@@ -4489,6 +4549,25 @@ def tp_sample(t: torch.Tensor) -> torch.Tensor:
     return flat[::max(1, flat.numel() // LM_TP_SAMPLE)].to("cpu", torch.float32, copy=True)
 
 
+def tp_block_samples(params: dict, cfg) -> list:
+    """Each rank of LM_TP_MESH's ``tp_sample`` of its block of every one of
+    `params` (by dotted name) and the blocks' specs, as (r)'s ranks lay
+    them out: the witness keeps these, not two host copies of the whole
+    parameters beside the spawned world."""
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.launch.specs import shape_rules
+    from repro_torch.models import transformer as T
+
+    b, s, _ = LM_TP_TRAIN
+    out = []
+    for rank in range(math.prod(LM_TP_MESH)):
+        mesh = meta_mesh(dict(zip(("data", "model"), LM_TP_MESH)), rank)
+        specs = T.flat_rank_param_pspecs(cfg, shape_rules(cfg, tp_shapes(b, s, s)["train"], mesh))
+        out.append({"specs": specs, "samples": {n: tp_sample(shard(p, mesh, specs[n])).numpy()
+                                                for n, p in params.items()}})
+    return out
+
+
 def tp_train_steps(step, state, batch: dict, model, n: int, mesh) -> list:
     """`n` meshed steps: each one's loss (the mean over the batch axes),
     grad norm, lr, ms (CUDA events), collective bytes, calls and host
@@ -4512,6 +4591,8 @@ def tp_train_steps(step, state, batch: dict, model, n: int, mesh) -> list:
 def tp_train_rank(mesh) -> dict:
     """(r) on one rank: its blocks of h2o, its rows of the batch, the
     meshed steps."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_arch
     from repro_torch.distributed.sharding import shard
     from repro_torch.kernels import fused
@@ -4523,7 +4604,7 @@ def tp_train_rank(mesh) -> dict:
     fused.reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    cfg = get_arch(LM_ARCH).config
+    cfg = dataclasses.replace(get_arch(LM_ARCH).config, remat=LM_TP_REMAT)
     b, s, n = LM_TP_TRAIN
     rules = shape_rules(cfg, tp_shapes(b, s, s)["train"], mesh)
     model, opt, state, specs = tp_train_model(cfg, dev, rules)
@@ -4536,17 +4617,17 @@ def tp_train_rank(mesh) -> dict:
     setup_s = time.perf_counter() - t0
     steps = tp_train_steps(step, state, batch, model, n, mesh)
     return {"steps": steps, "setup_s": setup_s, "specs": specs, "peak": torch.cuda.max_memory_allocated(dev),
-            "launches": dict(fused.LAUNCHES)}
+            "launches": dict(fused.LAUNCHES), "memory": rank_memory(dev)}
 
 
 def tp_train_comm(cfg, rows: int, seq: int, mesh_shape: tuple, params: dict) -> dict:
     """The collectives one meshed train step of the dense decoder should
     make on a rank, (calls, bytes) by kind, from the layout alone.  Remat
-    "dots": the backward recomputes each period's forward up to the last
-    tensor it saved (``torch.utils.checkpoint`` stops early), so the
-    weights' gathers and the attention's sum run twice and the MLP's sum,
-    whose output only the next period reads, once; the cross-entropy's
-    blocks ("full" remat) run twice.  `params` are the global parameters'
+    "dots" or "full": the backward recomputes each period's forward up to
+    the last tensor it needs (``torch.utils.checkpoint`` stops early), so
+    the weights' gathers and the attention's sum run twice and the MLP's
+    sum, whose output only the next period reads, once; the
+    cross-entropy's blocks ("full" remat) run twice.  `params` are the global parameters'
     shapes by dotted name (meta tensors)."""
     from repro_torch.distributed.sharding import ShardingRules, entry_axes, spec_axes
     from repro_torch.models import transformer as T
@@ -4618,7 +4699,6 @@ def flat_tree(tree, path: str = "") -> dict:
 def lm_tp_train_check(w: dict, ranks: list, dev, card: str, free: int, wall: float) -> list:
     """(r)'s holds on the world's `ranks` against the witness `w`; returns
     the ranks' kernel launch counts."""
-    from repro_torch.distributed.sharding import shard
     from repro_torch.launch.mesh import choose_transport, rank_devices
 
     cfg, want, peak = w["cfg"], w["want"], w["peak"]
@@ -4628,25 +4708,25 @@ def lm_tp_train_check(w: dict, ranks: list, dev, card: str, free: int, wall: flo
     # an AdamW step moves an element by at most lr (|m^ / sqrt(v^)| <= 1 on
     # the first step, about 1 on the next), so two runs' parameters part by
     # at most 2 lr a step, beside the f32 rounding of p + update on each side
-    top = max(float(v.abs().max()) for v in want[0]["params"].values())
+    top = want[0]["top"]
     bound, worst, ok = 2 * 2.0 ** -23 * top, [], True
     for i, w in enumerate(want):
         bound += 2 * w["lr"]
         err = 0.0
-        for rank, r in enumerate(ranks):
-            mesh = meta_mesh(dict(zip(("data", "model"), LM_TP_MESH)), rank)
+        for r, blocks in zip(ranks, w["blocks"]):
+            check(r["specs"] == blocks["specs"], "lm tp (r): a rank's specs are not the witness's")
             for name, got in r["steps"][i]["params"].items():
-                want_block = tp_sample(shard(w["params"][name], mesh, r["specs"][name]))
-                err = max(err, float(np.abs(got - want_block.numpy()).max()))
+                err = max(err, float(np.abs(got - blocks["samples"][name]).max()))
         worst.append(err)
         ok &= err <= bound
     for r in [*want, *(st for r in ranks for st in r["steps"])]:
-        del r["params"]
+        r.pop("params", None), r.pop("blocks", None)
     got = [[st["loss"] for st in r["steps"]] for r in ranks]
     norms = [[st["grad_norm"] for st in r["steps"]] for r in ranks]
     w_loss = [w["loss"] for w in want]
     print(f"lm tp (r) {cfg.name}: training at full width on {LM_TP_MESH} (data, model) on {dev} "
-          f"({transport}), {b} x {s}, bf16 compute, remat {cfg.remat}, {n} AdamW steps: step ms "
+          f"({transport}), {b} x {s}, bf16 compute, remat {LM_TP_REMAT} (the witness "
+          f"{cfg.remat}), {n} AdamW steps: step ms "
           f"{[[round(st['ms'], 1) for st in r['steps']] for r in ranks]} by rank (CUDA events), "
           f"of it in the collectives (host clock) "
           f"{[[round(st['coll_s'] * 1e3, 1) for st in r['steps']] for r in ranks]}; one device "
@@ -4765,7 +4845,7 @@ def tp_serve_rank(mesh, arch_key: str, prompts, tokens) -> dict:
                    shard(torch.from_numpy(tokens), mesh, row).to(dev), steps, mesh)
     return dict(out, peak=torch.cuda.max_memory_allocated(dev), init_s=init_s,
                 weight_bytes=weight_bytes, rows=shard(torch.arange(b), mesh, row[:1]).tolist(),
-                launches=dict(fused.LAUNCHES))
+                launches=dict(fused.LAUNCHES), memory=rank_memory(dev))
 
 
 def tp_serve_config(arch_key: str):
@@ -4920,17 +5000,21 @@ def phase_lm_tp(dev, h2o_witness: dict) -> None:
     axes = ("data", "model")
     r, s = h2o_witness, lm_tp_serve_witness(dev, "s")
     free, t1 = torch.cuda.mem_get_info()[0], time.perf_counter()
-    ranks = run_spmd(tp_h2o_rank, LM_TP_MESH, axes, device=dev,
-                     args=(s["prompts"], s["tokens"]), timeout=900)
+    with HostWatch() as watch:
+        ranks = run_spmd(tp_h2o_rank, LM_TP_MESH, axes, device=dev,
+                         args=(s["prompts"], s["tokens"]), timeout=900)
     wall = time.perf_counter() - t1
+    print(memory_line("lm tp (r), (s)", watch, [x[k]["memory"] for k in "rs" for x in ranks]))
     counts = (lm_tp_train_check(r, [x["r"] for x in ranks], dev, card, free, wall)
               + lm_tp_serve_check(s, [x["s"] for x in ranks], dev, card, LM_TP_MESH, axes,
                                   LM_BF16_TOL, free, wall))
     del r, s
     t = lm_tp_serve_witness(dev, "t")
     free, t1 = torch.cuda.mem_get_info()[0], time.perf_counter()
-    ranks = run_spmd(tp_serve_rank, (2,), ("model",), device=dev,
-                     args=("t", t["prompts"], t["tokens"]), timeout=900)
+    with HostWatch() as watch:
+        ranks = run_spmd(tp_serve_rank, (2,), ("model",), device=dev,
+                         args=("t", t["prompts"], t["tokens"]), timeout=900)
+    print(memory_line("lm tp (t)", watch, [x["memory"] for x in ranks]))
     counts += lm_tp_serve_check(t, ranks, dev, card, (2,), ("model",),
                                 LM_FULL_TOL["jamba-v0.1-52b"], free, time.perf_counter() - t1)
     lm_tp_dryrun(card)
@@ -5394,30 +5478,45 @@ def main() -> int:
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     rng = np.random.default_rng(0)
     errs: dict = {}
+    laps, last = {}, [t_start]
+
+    def lap(name: str) -> None:  # the seconds since the last lap, charged to `name`
+        now = time.perf_counter()
+        laps[name], last[0] = round(now - last[0], 1), now
+
     phase_build()
+    lap("build")
     phase_kernels(rng, dev, errs)
     torch.cuda.synchronize()
+    lap("kernels")
     phase_standalone_kernels(rng, dev, errs)
     torch.cuda.synchronize()
+    lap("standalone kernels")
     engine, store, launches, fused_batches = phase_main_path(dev)
     torch.cuda.synchronize()
+    lap("main path")
     engines, by_path = phase_host_paths(engine.spec, store, fused_batches)
     train_batches = [fused_batches[pid] for pid in range(8)]
     dedup_engines, dedup_by_path, dedup_pages = phase_dedup(dev)
     torch.cuda.synchronize()
+    lap("host paths, dedup")
     # the store's files live until the trainer has read them through the service
     files_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
     try:
         root = Path(files_dir.name)
         store_by_path = phase_store(dev, engine, fused_batches, root)
         torch.cuda.synchronize()
+        lap("store")
         service_by_path = phase_service(engine, root / "classic", fused_batches, root)
         torch.cuda.synchronize()
+        lap("service")
         mesh_by_path = phase_mesh(dev, engine.spec, root, fused_batches)
         torch.cuda.synchronize()
+        lap("mesh")
         del fused_batches
         phase_train_parity(dev)
         train_by_path = phase_train(dev, train_batches, engine, store, root / "classic")
+        lap("train")
     finally:
         files_dir.cleanup()
     del train_batches
@@ -5426,20 +5525,31 @@ def main() -> int:
     shutil.rmtree(ckpt_root, ignore_errors=True)
     try:
         driver_by_path = phase_driver(engine, ckpt_root / "driver")
+        lap("driver")
         phase_restore(dev, ckpt_root / "driver")
+        lap("restore")
         shutil.rmtree(ckpt_root / "driver")
         elastic_launches = phase_elastic(dev, ckpt_root / "elastic")
+        lap("elastic")
         shutil.rmtree(ckpt_root / "elastic")
         mesh_elastic_launches = phase_mesh_elastic(dev, ckpt_root / "mesh_elastic")
+        lap("mesh elastic")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     example_by_path = phase_examples()
+    lap("examples")
     phase_sim()
+    lap("sim")
     phase_lm_serve(dev)
+    lap("lm serve")
     phase_lm_families(dev)
+    lap("lm families")
     h2o_witness = phase_lm_train(dev)
+    lap("lm train")
     phase_lm_mesh(dev)
+    lap("lm mesh")
     phase_lm_tp(dev, h2o_witness)
+    lap("lm tp")
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},
                **store_by_path, **service_by_path, **mesh_by_path, **train_by_path,
@@ -5452,11 +5562,13 @@ def main() -> int:
     engines["presto"] = engine
     phase_breakdown(engines, store)
     torch.cuda.synchronize()
+    lap("breakdown")
     kernels = phase_timings(engines, store, dev, errs, by_path)
     for name, e in dedup_engines.items():
         profile_transform(f"dedup {name}", e, dedup_pages)
     torch.cuda.synchronize()
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    lap("timings")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s; by phase (s) {laps}")
     print(json.dumps({"kernels": kernels}))
     print(card_line(CARD))
     print(json.dumps({"ok": True, "device": {

@@ -251,7 +251,9 @@ def run_spmd(
     ]
     out: Dict[int, Any] = {}
     errors: List[str] = []
+    reported: set = set()  # ranks named by an entry of `errors`
     exited: Dict[int, float] = {}  # rank -> when it was first seen exited
+    killed: List[str] = []
     try:
         for p in procs:
             p.start()
@@ -269,6 +271,7 @@ def run_spmd(
                 if dead:
                     errors.append(f"rank(s) {dead} exited without a result "
                                   f"(exit codes {[procs[r].exitcode for r in dead]})")
+                    reported.update(dead)
                 elif now > deadline:
                     errors.append(f"no result from rank(s) "
                                   f"{sorted(set(range(world)) - set(out))} in {timeout} s")
@@ -277,6 +280,7 @@ def run_spmd(
                 out[rank] = value
             else:
                 errors.append(f"rank {rank} raised:\n{value}")
+                reported.add(rank)
         # a rank's failure makes its peers fail too, and their reports may
         # reach the queue first: gather what the others post for a while
         end = time.monotonic() + EXIT_GRACE_S
@@ -287,6 +291,13 @@ def run_spmd(
                 continue
             if status != "ok":
                 errors.append(f"rank {rank} raised:\n{value}")
+                reported.add(rank)
+        # a rank killed by a signal posts nothing, and its peers' errors
+        # (a closed connection) say nothing of why
+        killed = [f"rank {r} exited with code {p.exitcode} without a report"
+                  + (f" (killed by signal {-p.exitcode})" if p.exitcode < 0 else "")
+                  for r, p in enumerate(procs)
+                  if errors and r not in out and r not in reported and p.exitcode]
     finally:
         for p in procs:
             if errors:
@@ -298,5 +309,8 @@ def run_spmd(
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
     if errors:
-        raise RuntimeError("run_spmd: " + "\n".join(errors))
+        # the first report last, and a killed rank after it: the end of a
+        # long log shows the cause, not a peer's closed connection
+        raise RuntimeError("run_spmd: the first failure last\n"
+                           + "\n".join(errors[::-1] + killed))
     return [out[r] for r in range(world)]

@@ -151,6 +151,15 @@ def test_a_rank_that_raises_makes_run_spmd_raise():
         run_spmd(R.failing_rank, (2,), ("data",), device="cpu", timeout=120)
 
 
+def test_a_killed_rank_is_named_last_with_its_signal():
+    # the peer's closed connection comes first; the cause ends the message
+    with pytest.raises(RuntimeError) as err:
+        run_spmd(R.killed_rank, (2,), ("data",), device="cpu", timeout=120)
+    last = str(err.value).splitlines()[-1]
+    # named by the poll ("rank(s) [1] exited ...") or after the peer's report
+    assert "exited" in last and "1" in last and "-9" in last and "rank 0" not in last
+
+
 @pytest.mark.parametrize("n_data", [3, 16])
 def test_a_data_size_that_does_not_divide_raises(n_data):
     # 256 rows: 3 divides no page; 16 divides the rows but not the 8

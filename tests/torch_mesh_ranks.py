@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import signal
 
 import numpy as np
 import torch
@@ -232,3 +234,11 @@ def failing_rank(mesh) -> None:
     """Rank 1 raises; rank 0 returns and then waits for it."""
     if mesh.rank == 1:
         raise ValueError("rank 1 fails on purpose")
+
+
+def killed_rank(mesh) -> None:
+    """Rank 1 is killed by SIGKILL, as the kernel's OOM killer would; rank
+    0 waits for it in a collective and loses the connection."""
+    if mesh.rank == 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+    dist.barrier()
