@@ -147,6 +147,16 @@ just after:
   all-to-all bytes); (p) one expert-parallel train step of the reduced
   llama4 in f32 against the CPU's one-device step; none of the eight
   kernels launched;
+* the LM's TP/FSDP layout (``phase_lm_tp``): (r) h2o-danube-1.8b trained
+  on (data=2, model=2) against the one-device step, (s) served there, (t)
+  one jamba-v0.1-52b period on (model=2); (u) the dry run of every
+  production cell (its blocks; two cells traced on meta tensors with the
+  reference's memory and roofline columns); (v) the dry run's traces of
+  (j)'s, a rank of (r)'s and (i)'s train steps held to this run's card:
+  the traced peaks within DRY_PEAK_TOL of ``max_memory_allocated``, (r)'s
+  collectives and (i)'s FLOPs equal to the counted ones.  The traces run
+  on the host in a process of their own, started before ``phase_lm_train``
+  (after every phase whose times move with the host);
 
 and holds every unfused and hybrid batch bitwise against the fused batch of
 the same pid, dense included.  The lengths decode runs the ``bitunpack``
@@ -166,6 +176,7 @@ line.  Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
@@ -414,7 +425,7 @@ LM_EP_TRAIN, LM_EP_TRAIN_TOL = (4, 128), 1e-5
 # one-device greedy tokens, the logits within LM_BF16_TOL; (t) one
 # jamba-v0.1-52b period (bf16 params) under its default rules on (model=2):
 # LM_TP_JAMBA, the logits within LM_FULL_TOL, the drops equal; (u) the dry
-# run of every production cell
+# run of every production cell; (v) its traces held to the card (DRY_CELLS)
 LM_TP_MESH = (2, 2)
 LM_TP_TRAIN = (4, 4096, 2)
 # (r)'s remat: "full", not h2o's "dots" that the witness ran (the same
@@ -423,6 +434,14 @@ LM_TP_TRAIN = (4, 4096, 2)
 # four ranks at 17 GiB with their contexts ran the 80 GB card out of memory
 LM_TP_REMAT = "full"
 LM_TP_LOSS_TOL, LM_TP_NORM_TOL = 0.02, 0.01
+# (u) the dry run (launch.dryrun): every production cell's blocks a rank, and
+# DRY_CELLS (arch, shape, mesh) traced on meta tensors; (v) the trace's peak
+# within DRY_PEAK_TOL of the card's max_memory_allocated for (j) and a rank of
+# (r), (r)'s collectives and (i)'s FLOPs as counted.  Both trace in a process
+# of their own (dry_traces), started before the LM's training, while the card runs
+DRY_CELLS = (("h2o-danube-1.8b", "decode_32k", "single"),
+             ("llama4-maverick-400b-a17b", "decode_32k", "multi"))
+DRY_PEAK_TOL = 0.10
 LM_TP_SERVE = (4, 4096, 2)  # a prompt of 8,192 until the script neared its 1,200 s
 LM_TP_SAMPLE = 1 << 16  # elements of each parameter block (r) brings back, evenly spaced
 LM_TP_JAMBA = (4, 4096, 16)
@@ -3141,7 +3160,7 @@ def lm_full(dev, arch: str, overrides: dict, rng, card: str) -> None:
     cache_io = 0
     for c in spec.values():
         for name, t in c.items():
-            nb = t.numel() * t.element_size()
+            nb = math.prod(t.shape) * t.dtype.itemsize
             cache_io += nb + (nb // max_seq if name in ("k", "v") else nb)
     floor = (step_weights + cache_io) / PEAK_BYTES_PER_S * 1e3
     sparse = ""
@@ -3780,7 +3799,7 @@ def lm_train_h2o(dev, card: str) -> dict:
                         f"{b} x {s} in {k} microbatches")
     print(witness_line("i, adafactor", witness))
     check(all(r["ok"] for r in witness), f"lm train (i): Adafactor against plain: {witness}")
-    lm_train_useful(cfg, model, loss_fn, batch, k)
+    q_flops = lm_train_useful(cfg, model, loss_fn, batch, k)
     lm_train_losses_fall("i", runs, cfg)
     got = runs[0]["metrics"][0]["xent"]
     print(f"lm train (i): the first step's xent {got:.6f} against prefill_hidden + "
@@ -3792,10 +3811,11 @@ def lm_train_h2o(dev, card: str) -> dict:
     del model, batch, heldout
     gc.collect()
     torch.cuda.empty_cache()
-    return {"cfg": cfg, "want": tp_want, "peak": runs[0]["peak"], "shapes": shapes}
+    return {"cfg": cfg, "want": tp_want, "peak": runs[0]["peak"], "shapes": shapes,
+            "q_flops": q_flops}
 
 
-def lm_train_useful(cfg, model, loss_fn, batch: dict, k: int) -> None:
+def lm_train_useful(cfg, model, loss_fn, batch: dict, k: int) -> int:
     """(q) for (i): the model FLOPs of a step over ``FlopCounterMode``'s
     count of its forward and backward (remat's recompute included): one
     microbatch counted, times the `k` of the same shape; outside the timed
@@ -3817,6 +3837,7 @@ def lm_train_useful(cfg, model, loss_fn, batch: dict, k: int) -> None:
           f"microbatch's count), remat's recompute included ({time.perf_counter() - t0:.1f} s, "
           f"outside the timed steps)")
     check(counted > 0, f"lm train (i): FlopCounterMode counted {counted} FLOPs")
+    return counted
 
 
 def lm_train_full(dev, card: str, tag: str, arch: str, overrides: dict, shape: tuple,
@@ -3923,7 +3944,8 @@ def phase_lm_train(dev) -> dict:
     fused.reset_launches()
     lm_train_parity(dev)
     h2o_witness = lm_train_h2o(dev, card)
-    lm_train_full(dev, card, "j", "mamba2-1.3b", {}, LM_TRAIN_MAMBA, "adamw")
+    h2o_witness["j_peak"] = lm_train_full(dev, card, "j", "mamba2-1.3b", {}, LM_TRAIN_MAMBA,
+                                          "adamw")["peak"]
     lm_train_full(dev, card, "k", "seamless-m4t-medium", {}, LM_TRAIN_ENCDEC, "adamw",
                   LM_TRAIN_ENCDEC_LR)
     r = lm_train_full(dev, card, "l", "jamba-v0.1-52b",
@@ -4937,34 +4959,161 @@ def lm_tp_serve_check(w: dict, ranks: list, dev, card: str, mesh_shape: tuple, a
     return [r["launches"] for r in ranks]
 
 
-def lm_tp_dryrun(card: str) -> None:
-    """(u): ``python -m repro_torch.launch.dryrun --arch all --shape all
-    --mesh both``: every production cell's per-rank argument GiB."""
-    out = ROOT / "build" / "chip_smoke_dryrun.jsonl"
-    out.unlink(missing_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def dry_traces(path: str) -> None:
+    """The dry run's work for (u) and (v), on meta tensors on the host (no
+    card): every production cell's argument bytes a rank (the blocks'
+    shapes), DRY_CELLS through ``launch.dryrun.main`` (the CLI), and the
+    train steps of (j), of (r)'s rank 0 and of (i) traced by
+    ``launch.trace_cost``, each as the card runs it: (j) and (r) the dry
+    run's own cells (``launch.specs.build_train_cell``), (i) its step over
+    2 microbatches.  Written to `path` as JSON."""
+    import dataclasses
+    import io
+
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import dryrun, specs, trace_cost
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    from repro_torch.train import make_optimizer, make_train_step, warmup_cosine
+
+    out: dict = {"cells": {}, "s": {}}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
-                           "--shape", "all", "--mesh", "both", "--out", str(out)],
-                          capture_output=True, text=True, env=env, timeout=300)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"lm tp (u): the dry run failed: {proc.stdout[-2000:]}"
-                                f"{proc.stderr[-2000:]}")
-    recs = [json.loads(line) for line in out.read_text().splitlines()]
-    out.unlink()
+    for multi in (False, True):
+        for arch in ARCH_IDS:
+            entry = get_arch(arch)
+            for shape in SHAPES:
+                key = f"{arch}:{shape}:{'multi' if multi else 'single'}"
+                try:
+                    out["cells"][key] = ("skip" if shape in entry.skip_shapes else dryrun.tree_bytes(
+                        specs.build_cell(entry.config, shape, dryrun.production_mesh(multi)).args))
+                except Exception as e:  # noqa: BLE001 - reported by (u)
+                    out["cells"][key] = f"error: {type(e).__name__}: {e}"
+    out["s"]["shapes"] = time.perf_counter() - t0
+    cli = Path(path).with_suffix(".jsonl")
+    cli.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        for arch, shape, mesh in DRY_CELLS:
+            dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh, "--out", str(cli)])
+    out["records"] = [json.loads(line) for line in cli.read_text().splitlines()]
+    cli.unlink()
+    out["s"]["cli"] = time.perf_counter() - t0
+
+    def traced(key, cfg, shape, mesh=None, microbatches=None):
+        t0 = time.perf_counter()
+        spec = specs.build_train_cell(cfg, shape, mesh)
+        fn = spec.fn
+        if microbatches is not None:
+            rules = ShardingRules.make(None)
+            fn = make_train_step(lambda m, b: T.loss_fn(m.tree(), b, cfg, rules),
+                                 make_optimizer("adamw", warmup_cosine(*LM_TRAIN_LR)),
+                                 microbatches=microbatches)
+        cost = trace_cost.analyze(fn, dryrun.meta_args(spec, shape),
+                                  counter=None if mesh is None else mesh.counter)
+        out[key] = {"peak": cost.peak_bytes, "flops": cost.flops,
+                    "conv_flops": cost.conv_flops, "calls": cost.coll_calls, "bytes": cost.coll_breakdown, "ops": cost.ops,
+                    "s": time.perf_counter() - t0}
+
+    b, s, steps = LM_TRAIN_MAMBA
+    traced("j", get_arch("mamba2-1.3b").config, ShapeConfig("j", s, b, "train"))
+    b, s, _ = LM_TP_TRAIN
+    h2o = get_arch(LM_ARCH).config
+    traced("r", dataclasses.replace(h2o, remat=LM_TP_REMAT), ShapeConfig("r", s, b, "train"),
+           Mesh(dict(zip(("data", "model"), LM_TP_MESH)), 0, torch.device("meta"), "none"))
+    b, s, k, _, _ = LM_TRAIN_H2O
+    traced("i", h2o, ShapeConfig("i", s, b, "train"), microbatches=k)
+    Path(path).write_text(json.dumps(out))
+
+
+def start_dry_traces():
+    """``dry_traces`` in a process of its own, on the host's cores while the
+    card runs: (the process, the path it writes)."""
+    path = ROOT / "build" / "chip_smoke_dry.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.dry_traces({str(path)!r})")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), path
+
+
+def dry_results(job) -> dict:
+    """The results of ``start_dry_traces``' process, once it has ended."""
+    proc, path = job
+    t0 = time.perf_counter()
+    log, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"the dry run's traces failed: {log[-3000:]}")
+    out = json.loads(path.read_text())
+    path.unlink()
+    out["waited"] = time.perf_counter() - t0
+    return out
+
+
+def lm_tp_dryrun(card: str, dry: dict) -> None:
+    """(u): the dry run (``launch.dryrun``): every production cell's
+    argument GiB a rank, and DRY_CELLS traced, with the reference's memory
+    and roofline columns."""
     cells = {}
-    for r in recs:
-        key = f"{r['arch']}:{r['shape']}"
-        gib = (round(r["memory"]["argument_bytes"] / 2**30, 3) if r["status"] == "ok"
-               else r["status"])
-        cells.setdefault(key, []).append(gib)
-    print(f"lm tp (u): the dry run, {len(recs)} cells in {wall:.1f} s (no ranks, nothing "
-          f"allocated), argument GiB a rank [single, multi]: "
-          + "; ".join(f"{k} {v}" for k, v in cells.items()) + f"; card {card}")
-    check(all(r["status"] in ("ok", "skip") for r in recs), "lm tp (u): a cell failed")
+    for key, v in dry["cells"].items():
+        arch, shape, _ = key.split(":")
+        cells.setdefault(f"{arch}:{shape}", []).append(
+            round(v / 2**30, 3) if isinstance(v, int) else v)
+    print(f"lm tp (u): the dry run's blocks of {len(dry['cells'])} cells in "
+          f"{dry['s']['shapes']:.1f} s (no ranks, nothing allocated), argument GiB a rank "
+          f"[single, multi]: " + "; ".join(f"{k} {v}" for k, v in cells.items()) + f"; card {card}")
+    check(not [k for k, v in dry["cells"].items() if isinstance(v, str) and v != "skip"],
+          f"lm tp (u): a cell failed: {dry['cells']}")
+    roof_keys = {"flops_per_dev", "hbm_bytes_per_dev", "coll_bytes_per_dev", "coll_breakdown",
+                 "model_flops_global", "chips", "compute_s", "memory_s", "collective_s",
+                 "dominant", "useful_ratio", "roofline_fraction"}
+    for r in dry["records"]:
+        mem, roof = r.get("memory", {}), r.get("roofline", {})
+        print(f"lm tp (u): {r['arch']} x {r['shape']} x {r['mesh']} traced on meta tensors in "
+              f"{r.get('build_s')} s (rank {r.get('rank')}, cache_len {r.get('cache_len')}): "
+              f"memory {mem}; dominant {roof.get('dominant')}, terms (c/m/x) "
+              f"{[round(roof.get(t, 0) * 1e3, 3) for t in ('compute_s', 'memory_s', 'collective_s')]}"
+              f" ms, rf {roof.get('roofline_fraction')}, collective bytes "
+              f"{roof.get('coll_breakdown')} (traced counts over H100 SXM data-sheet rates)")
+        check(r["status"] == "ok" and set(roof) == roof_keys
+              and all(isinstance(mem.get(k), int) for k in ("temp_bytes", "peak_estimate_bytes"))
+              and mem["peak_estimate_bytes"] == mem["argument_bytes"] + mem["output_bytes"]
+              + mem["temp_bytes"] - mem["alias_bytes"], f"lm tp (u): {r}")
+    print(f"lm tp (u): the traced cells' CLI {dry['s']['cli']:.1f} s; the traces' process "
+          f"waited for {dry['waited']:.1f} s")
 
 
-def phase_lm_tp(dev, h2o_witness: dict) -> None:
+def lm_dry_holds(card: str, dry: dict, h2o_witness: dict, r_ranks: list) -> None:
+    """(v): the dry run's traces against this run's card: the traced peak
+    of (j) and of a rank of (r) within DRY_PEAK_TOL of the card's
+    ``max_memory_allocated``, (r)'s collectives as its ranks counted them
+    a step, (i)'s FLOPs as (q)'s ``FlopCounterMode`` counted them."""
+    j, r, i = dry["j"], dry["r"], dry["i"]
+    j_card = h2o_witness["j_peak"]
+    r_card = [x["peak"] for x in r_ranks]
+    seen = {(k, st["calls"][k], st["bytes"][k]) for x in r_ranks for st in x["steps"]
+            for k in st["calls"]}
+    traced = {(k, r["calls"][k], int(r["bytes"][k])) for k in {k for k, _, _ in seen}}
+    print(f"lm dry (v): (j) mamba2-1.3b 4 x 4,096 AdamW traced peak {j['peak']} bytes against "
+          f"the card's {j_card} ({j['peak'] / j_card - 1:+.2%}; traced in {j['s']:.1f} s, "
+          f"{j['ops']} ops); (r) a rank traced {r['peak']} against the ranks' {r_card} "
+          f"({[f'{r['peak'] / c - 1:+.2%}' for c in r_card]}; {r['s']:.1f} s); (r)'s "
+          f"collectives a step traced {sorted(traced)} against counted {sorted(seen)}; (i)'s "
+          f"step traced {i['flops']} FLOPs (+ {i['conv_flops']} of convolutions) "
+          f"against (q)'s {h2o_witness['q_flops']} ({i['s']:.1f} s); bound {DRY_PEAK_TOL:.0%}; "
+          f"card {card}")
+    check(abs(j["peak"] / j_card - 1) <= DRY_PEAK_TOL,
+          f"lm dry (v): (j)'s traced peak {j['peak']} against {j_card}")
+    check(all(abs(r["peak"] / c - 1) <= DRY_PEAK_TOL for c in r_card),
+          f"lm dry (v): (r)'s traced peak {r['peak']} against {r_card}")
+    check(traced == seen, f"lm dry (v): (r)'s collectives traced {traced}, counted {seen}")
+    check(i["flops"] + i["conv_flops"] == h2o_witness["q_flops"] and i["conv_flops"] == 0,
+          f"lm dry (v): (i)'s traced FLOPs {i} against (q)'s {h2o_witness['q_flops']}")
+
+
+def phase_lm_tp(dev, h2o_witness: dict, dry_job) -> None:
     """The LM's tensor-parallel and FSDP layout (ROADMAP A8): every weight
     the rank's block of the reference's ``param_pspecs``, FSDP weights
     gathered in bf16 as read, column- then row-parallel products over
@@ -4985,7 +5134,9 @@ def phase_lm_tp(dev, h2o_witness: dict) -> None:
         dense dispatch of each rank's experts, the SSM split over ``ff``,
         the logits within (f)'s bound, the drops equal, half the weights a
         rank;
-    (u) the dry run of every production cell.
+    (u) the dry run of every production cell, two of them traced;
+    (v) the dry run's traces of (j), (r) and (i) against the card's peaks
+        and counts (``lm_dry_holds``).
 
     (r)'s witness is ``phase_lm_train`` (i)'s first steps (`h2o_witness`,
     the same function); (r) and (s) run in one world of ranks, one after
@@ -5005,7 +5156,8 @@ def phase_lm_tp(dev, h2o_witness: dict) -> None:
                          args=(s["prompts"], s["tokens"]), timeout=900)
     wall = time.perf_counter() - t1
     print(memory_line("lm tp (r), (s)", watch, [x[k]["memory"] for k in "rs" for x in ranks]))
-    counts = (lm_tp_train_check(r, [x["r"] for x in ranks], dev, card, free, wall)
+    r_ranks = [x["r"] for x in ranks]
+    counts = (lm_tp_train_check(r, r_ranks, dev, card, free, wall)
               + lm_tp_serve_check(s, [x["s"] for x in ranks], dev, card, LM_TP_MESH, axes,
                                   LM_BF16_TOL, free, wall))
     del r, s
@@ -5017,7 +5169,9 @@ def phase_lm_tp(dev, h2o_witness: dict) -> None:
     print(memory_line("lm tp (t)", watch, [x["memory"] for x in ranks]))
     counts += lm_tp_serve_check(t, ranks, dev, card, (2,), ("model",),
                                 LM_FULL_TOL["jamba-v0.1-52b"], free, time.perf_counter() - t1)
-    lm_tp_dryrun(card)
+    dry = dry_results(dry_job)
+    lm_tp_dryrun(card, dry)
+    lm_dry_holds(card, dry, h2o_witness, r_ranks)
     counts.append(dict(fused.LAUNCHES))
     launched = {k: sum(c.get(k, 0) for c in counts) for k in fused.LAUNCHES}
     launched = {k: v for k, v in launched.items() if v}
@@ -5544,11 +5698,15 @@ def main() -> int:
     lap("lm serve")
     phase_lm_families(dev)
     lap("lm families")
+    # meta tensors traced on the host beside the LM's train steps, which are
+    # bound by the card, after every phase whose times move with the host
+    dry_job = start_dry_traces()
+    atexit.register(lambda: dry_job[0].poll() is None and dry_job[0].kill())
     h2o_witness = phase_lm_train(dev)
     lap("lm train")
     phase_lm_mesh(dev)
     lap("lm mesh")
-    phase_lm_tp(dev, h2o_witness)
+    phase_lm_tp(dev, h2o_witness, dry_job)
     lap("lm tp")
     by_path = {"presto": launches, **by_path,
                **{f"dedup {name}": by_k for name, by_k in dedup_by_path.items()},

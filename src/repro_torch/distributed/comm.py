@@ -35,7 +35,14 @@ which block; the enqueue on NCCL).
 Each call runs on the mesh's transport (``launch.mesh``): NCCL on device
 tensors when every rank has a card of its own, gloo on host tensors for CPU
 ranks, and gloo with every operand staged through a pinned host buffer when
-ranks share a card.  An axis of size 1 moves nothing and counts nothing.
+ranks share a card.  On a mesh with no world behind it (transport
+``"none"``: the dry run's ``Mesh(shape, rank, torch.device("meta"),
+"none")``) a call moves nothing and calls nothing in ``torch.distributed``:
+it takes meta tensors only (on any other it raises, having no values to
+return), returns a new meta tensor of its result's shape and dtype, and
+counts its bytes and one call as the transports do, backwards included, so
+a traced step counts a rank's collectives (``launch.trace_cost``).  An
+axis of size 1 moves nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -84,6 +91,17 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _dry(mesh, x: torch.Tensor) -> bool:
+    """Whether `mesh` has no world behind it (its collectives only count).
+    Such a call has no values to return, so it takes meta tensors only."""
+    if mesh.transport != "none":
+        return False
+    if x.device.type != "meta":
+        raise RuntimeError(f"a mesh with no world moves no values: a collective on it takes "
+                           f"meta tensors, not {x.device.type} ones")
+    return True
+
+
 def _to_wire(mesh, x: torch.Tensor) -> torch.Tensor:
     """A private contiguous copy of `x` where the transport reads it: a
     pinned host buffer when ranks share a card, else on `x`'s device."""
@@ -125,25 +143,31 @@ def ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
     if n == 1:
         return x
     t0 = time.perf_counter()
-    i = mesh.coords[axis]
-    ranks = mesh.group_ranks[axis]
-    send = _to_wire(mesh, x)
-    recv = _wire_like(mesh, x)
-    group = mesh.groups[axis]
-    ops = [dist.P2POp(dist.isend, send, ranks[(i + shift) % n], group),
-           dist.P2POp(dist.irecv, recv, ranks[(i - shift) % n], group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    out = _from_wire(recv, x)
+    if _dry(mesh, x):
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    else:
+        i = mesh.coords[axis]
+        ranks = mesh.group_ranks[axis]
+        send = _to_wire(mesh, x)
+        recv = _wire_like(mesh, x)
+        group = mesh.groups[axis]
+        ops = [dist.P2POp(dist.isend, send, ranks[(i + shift) % n], group),
+               dist.P2POp(dist.irecv, recv, ranks[(i - shift) % n], group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = _from_wire(recv, x)
     mesh.counter.add("collective-permute", _nbytes(x), t0)
     return out
 
 
 def _all_reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
     t0 = time.perf_counter()
-    buf = _to_wire(mesh, x)
-    dist.all_reduce(buf, op=op, group=mesh.groups[axis])
-    out = _from_wire(buf, x)
+    if _dry(mesh, x):
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    else:
+        buf = _to_wire(mesh, x)
+        dist.all_reduce(buf, op=op, group=mesh.groups[axis])
+        out = _from_wire(buf, x)
     mesh.counter.add("all-reduce", _nbytes(x), t0)
     return out
 
@@ -196,10 +220,13 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if n == 1:
         return x[None]
     t0 = time.perf_counter()
-    send = _to_wire(mesh, x.detach())
-    bufs: List[torch.Tensor] = [_wire_like(mesh, x) for _ in range(n)]
-    dist.all_gather(bufs, send, group=mesh.groups[axis])
-    out = _from_wire(torch.stack(bufs), x)
+    if _dry(mesh, x):
+        out = x.new_empty((n, *x.shape))
+    else:
+        send = _to_wire(mesh, x.detach())
+        bufs: List[torch.Tensor] = [_wire_like(mesh, x) for _ in range(n)]
+        dist.all_gather(bufs, send, group=mesh.groups[axis])
+        out = _from_wire(torch.stack(bufs), x)
     mesh.counter.add("all-gather", _nbytes(x), t0)
     return out
 
@@ -236,10 +263,13 @@ def _exchange(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int)
     t0 = time.perf_counter()
     front = x.movedim(split_dim, 0)
     chunk = (front.shape[0] // n, *front.shape[1:])
-    send = _to_wire(mesh, front.reshape(n, *chunk))
-    recv = _wire_like(mesh, send)
-    dist.all_to_all_single(recv, send, group=mesh.groups[axis])
-    recv = _from_wire(recv, x)
+    if _dry(mesh, x):
+        recv = x.new_empty((n, *chunk))
+    else:
+        send = _to_wire(mesh, front.reshape(n, *chunk))
+        recv = _wire_like(mesh, send)
+        dist.all_to_all_single(recv, send, group=mesh.groups[axis])
+        recv = _from_wire(recv, x)
     out = torch.cat([recv[i].movedim(0, split_dim) for i in range(n)], dim=concat_dim)
     mesh.counter.add("all-to-all", max(_nbytes(x), _nbytes(out)), t0)
     return out

@@ -2,30 +2,42 @@
 ``repro.launch.dryrun``.
 
 For each cell it builds one rank's ``LoweringSpec`` (``launch.specs``) on
-the production mesh (16 x 16 single-pod, 2 x 16 x 16 multi-pod) and records
-what that rank holds: it runs no ranks, starts no world and allocates
-nothing (the mesh is a ``launch.mesh.Mesh`` record with no process group).
-The layout it reports is the one the port runs on a mesh: the reference's
-``param_pspecs``, ``opt_state_pspecs`` and ``cache_pspecs`` under the
-shape's rules, every block even (a sharded axis that does not divide
-raises, as the reference's ``NamedSharding`` does, and the cell is an
-error).  Every rank's blocks then have one shape, so rank 0 answers for
-all.
+the production mesh (16 x 16 single-pod, 2 x 16 x 16 multi-pod; under
+``--reduced`` the smoke-size configs on 2 x 2 and 2 x 2 x 2, which their
+4 to 8 heads, experts and SSM heads divide, where 16 ranks do not) and traces
+that rank's step once on meta tensors (``launch.trace_cost``): it runs no
+ranks, starts no world and allocates nothing.  The mesh is a
+``launch.mesh.Mesh`` record with no process group, whose collectives
+(``distributed.comm``) count their bytes and move nothing.  The layout is
+the one the port runs on a mesh: the reference's ``param_pspecs``,
+``opt_state_pspecs`` and ``cache_pspecs`` under the shape's rules, every
+block even (a sharded axis that does not divide raises, as the
+reference's ``NamedSharding`` does, and the cell is an error).  Every
+rank's blocks have one shape, so rank 0's trace answers for all but what
+depends on a rank's coordinates: a decode step is traced at a concrete
+``cache_len`` (the cache's last position, ``seq_len - 1``), and under
+context-parallel decode only the rank whose slice holds that position
+writes the token's k and v; the record names its rank and its length.
 
 A record is one JSON line with the reference's keys: ``arch``, ``shape``,
 ``mesh``, ``status`` (ok, skip or error) and ``reason``; an ok cell adds
-``chips`` and
+``build_s`` (the spec and the trace, seconds), ``chips``, ``rank``,
+``cache_len`` (decode) and
 
 * ``memory``: ``argument_bytes`` (the rank's inputs), ``output_bytes``
-  (its outputs: the new state and metrics of a train step, the logits and
-  caches of prefill and decode, the encoder's output of an enc-dec
-  prefill), ``alias_bytes`` (the outputs updated in place: a train step's
-  state, a decode step's caches) and ``temp_bytes``, null: there is no
-  compiler to estimate temporaries (``chip_smoke.py``'s mesh phases
-  measure real peaks);
-* ``roofline``: the compute term of ``roofline.model_flops`` (6 N D for
-  training, 2 N D for inference, active parameters) over the chips at the
-  H100's bf16 dense rate, marked as a model count, not a compiled one.
+  (its outputs, each storage once), ``alias_bytes`` (the outputs that are
+  inputs updated in place: a train step's parameters and optimizer state,
+  a decode step's caches), ``peak_estimate_bytes`` (the trace's peak of
+  live storages on the rank's card, rounded to the allocator's 512-byte
+  blocks) and ``temp_bytes`` = peak - arguments - outputs + aliases, so
+  that the reference's ``peak = args + out + temp - alias`` holds;
+* ``roofline``: ``roofline.from_cost``'s terms (``to_json``): FLOPs, HBM
+  bytes and collective bytes by kind a rank, the model FLOPs, each term's
+  seconds at the H100 SXM data-sheet rates, the dominant term and the
+  roofline fraction.  They are traced counts over data-sheet rates, not
+  measurements;
+* ``cost``: what the trace counts beside them: transcendentals,
+  convolution FLOPs, collective calls by kind and ops dispatched.
 
 Usage:
 
@@ -47,17 +59,19 @@ import torch
 from repro_torch.common.util import ShapeDtype
 from repro_torch.configs.registry import ARCH_IDS, get_arch
 from repro_torch.launch import roofline as rl
+from repro_torch.launch import trace_cost
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.specs import build_cell
-from repro_torch.models import transformer as T
 from repro_torch.models.config import SHAPES
+from repro_torch.models.layers import ParamTree
 
-METRIC_KEYS = ("loss", "xent", "grad_norm", "lr")  # a train step's f32 scalar metrics
 
-
-def production_mesh(multi_pod: bool, rank: int = 0) -> Mesh:
-    """Rank `rank`'s view of the production mesh, with no world behind it."""
-    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+def production_mesh(multi_pod: bool, rank: int = 0, reduced: bool = False) -> Mesh:
+    """Rank `rank`'s view of the production mesh, with no world behind it;
+    `reduced`, of the (2, 2) mesh (2 x 2 x 2 multi-pod) that the reduced
+    configs' heads, experts and SSM heads divide (16 ranks do not)."""
+    n = 2 if reduced else 16
+    shape = {"pod": 2, "data": n, "model": n} if multi_pod else {"data": n, "model": n}
     return Mesh(shape, rank, torch.device("meta"), "none")
 
 
@@ -69,31 +83,24 @@ def tree_bytes(tree) -> int:
     return math.prod(tree.shape) * torch.empty((), dtype=tree.dtype).element_size()
 
 
-def output_bytes(cfg, shape, spec) -> tuple:
-    """(output bytes, of which updated in place) of one rank's cell."""
-    rules = spec.rules
+def meta_args(spec, shape) -> list:
+    """`spec.args` as meta tensors: a train cell's parameters as the
+    ``ParamTree`` the step takes, a decode cell's length as the concrete
+    ``shape.seq_len - 1`` (``decode_step`` reads it on the host)."""
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, tuple) and not isinstance(tree, ShapeDtype):
+            return tuple(meta(v) for v in tree)
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+    args = list(meta(spec.args))
     if shape.kind == "train":
-        state = tree_bytes(spec.args[0])
-        n_metrics = len(METRIC_KEYS) + (0 if cfg.is_encdec else 1)  # and moe_aux
-        return state + 4 * n_metrics, state
-    rows = spec.args[1].shape[0]
-    dt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    if shape.kind == "prefill" and cfg.is_encdec:
-        return tree_bytes(spec.args[1]), 0
-    vocab = cfg.padded_vocab // max(rules.axis_size("vocab"), 1)
-    logits = rows * vocab * dt
+        args[0] = dict(args[0], params=ParamTree(args[0]["params"]))
     if shape.kind == "decode":
-        caches = tree_bytes(spec.args[2])
-        return logits + caches, caches
-    caches = T.cache_block_shapes(cfg, rows, shape.seq_len, rules)
-    flat = []
-
-    def walk(node):
-        for v in node.values():
-            walk(v) if isinstance(v, dict) else flat.append(ShapeDtype(*v))
-
-    walk(caches)
-    return logits + tree_bytes(flat), 0
+        args[3] = shape.seq_len - 1
+    return args
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool, out_path: str,
@@ -109,26 +116,35 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, out_path: str,
         return rec
     t0 = time.time()
     try:
-        mesh = production_mesh(multi_pod)
+        mesh = production_mesh(multi_pod, reduced=reduced)
         chips = math.prod(mesh.shape.values())
         shape = SHAPES[shape_name]
         spec = build_cell(cfg, shape_name, mesh)
-        args = tree_bytes(spec.args)
-        out, alias = output_bytes(cfg, shape, spec)
-        flops = rl.model_flops(cfg, shape)
+        args = meta_args(spec, shape)
+        cost = trace_cost.analyze(spec.fn, args, counter=mesh.counter)
+        terms = rl.from_cost(cost, cfg, shape, chips)
+        arg_bytes = tree_bytes(spec.args)
+        temp = cost.peak_bytes - arg_bytes - cost.out_bytes + cost.alias_bytes
         rec.update(
             status="ok",
             build_s=round(time.time() - t0, 3),
             chips=chips,
-            memory={"argument_bytes": args, "output_bytes": out, "alias_bytes": alias,
-                    "temp_bytes": None},
-            roofline={"model_flops": flops, "flops_per_chip": flops / chips,
-                      "compute_s": flops / chips / rl.PEAK_FLOPS,
-                      "flops_source": "model count (roofline.model_flops), not compiled"},
+            rank=mesh.rank,
+            memory={"argument_bytes": arg_bytes, "output_bytes": cost.out_bytes,
+                    "alias_bytes": cost.alias_bytes, "temp_bytes": temp,
+                    "peak_estimate_bytes": cost.peak_bytes},
+            roofline=terms.to_json(),
+            cost={"trans": cost.trans, "conv_flops": cost.conv_flops,
+                  "coll_calls": cost.coll_calls, "ops": cost.ops},
         )
-        print(f"[ok] {arch_id} x {shape_name} x {mesh_name}: args/rank {args / 2**30:.3f} GiB, "
-              f"outputs/rank {out / 2**30:.3f} GiB, compute "
-              f"{rec['roofline']['compute_s'] * 1e3:.2f} ms (model FLOPs)", flush=True)
+        if shape.kind == "decode":
+            rec["cache_len"] = args[3]
+        print(f"[ok] {arch_id} x {shape_name} x {mesh_name}: traced in {rec['build_s']}s, "
+              f"temp/rank {temp / 2**30:.2f} GiB, args/rank {arg_bytes / 2**30:.2f} GiB, "
+              f"peak/rank {cost.peak_bytes / 2**30:.2f} GiB, dominant={terms.dominant}, "
+              f"terms(c/m/x)=({terms.compute_s * 1e3:.2f}/{terms.memory_s * 1e3:.2f}/"
+              f"{terms.collective_s * 1e3:.2f})ms, rf={terms.roofline_fraction:.3f}",
+              flush=True)
     except Exception as e:  # noqa: BLE001 - record, continue the sweep
         rec.update(status="error", reason=f"{type(e).__name__}: {e}",
                    build_s=round(time.time() - t0, 3))
@@ -151,7 +167,8 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default="all", help="shape name or 'all'")
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
     ap.add_argument("--out", default="build/dryrun.jsonl")
-    ap.add_argument("--reduced", action="store_true", help="smoke-size configs")
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-size configs, on a (2, 2) mesh (2 x 2 x 2 multi-pod)")
     ap.add_argument("--skip-done", action="store_true",
                     help="skip cells already ok in --out")
     args = ap.parse_args(argv)

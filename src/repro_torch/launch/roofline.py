@@ -11,14 +11,18 @@ sends (``distributed.comm``'s payload count), and a card sends at half of
 the total while it receives at the other half, so ``collective_s`` divides
 by 450e9.
 
-The reference derives its terms from compiled HLO.  The port has no HLO, so
-``derive`` counts what it can observe of one call of the step: its FLOPs
-with ``torch.utils.flop_counter.FlopCounterMode`` (matrix products,
+The reference derives its terms from compiled HLO (``hlo_cost.analyze``).
+The port has no HLO: ``from_cost`` builds the terms from
+``launch.trace_cost``'s ``Cost`` of one rank's step traced on meta tensors
+(the dry run's), whose FLOPs, HBM bytes and collective bytes follow
+``hlo_cost``'s conventions; ``collective_bytes(hlo_text)``, the
+reference's parse of HLO text, is ``trace_cost``'s collective count.
+``derive`` counts what it can observe of one real call of the step: its
+FLOPs with ``torch.utils.flop_counter.FlopCounterMode`` (matrix products,
 convolutions, attention; elementwise work counts zero, as in the HLO's dot
 count), its bytes as its inputs read once plus its outputs written once
 (the least any implementation moves), and its collective bytes from the
-mesh's ``CommCounter``.  ``collective_bytes(hlo_text)``, the reference's
-parse of HLO text, has no counterpart.
+mesh's ``CommCounter``.
 
 ``param_counts`` and ``model_flops`` read the model schema, as the
 reference's do: 6·N_active·D for training and 2·N_active·D for inference,
@@ -174,6 +178,19 @@ def derive(fn: Callable, args: tuple, cfg, shape, chips: int = 1,
         hbm_bytes_per_dev=float(bytes_of_tree(args) + bytes_of_tree(out)),
         coll_bytes_per_dev=sum(coll.values()),
         coll_breakdown=coll,
+        model_flops_global=model_flops(cfg, shape),
+        chips=chips,
+    )
+
+
+def from_cost(cost, cfg, shape, chips: int) -> RooflineTerms:
+    """The terms of one rank's traced step (``trace_cost.Cost``), as the
+    reference's ``derive`` builds them from ``hlo_cost.analyze``."""
+    return RooflineTerms(
+        flops_per_dev=float(cost.flops),
+        hbm_bytes_per_dev=float(cost.hbm_bytes),
+        coll_bytes_per_dev=int(cost.coll_bytes),
+        coll_breakdown={k: int(v) for k, v in cost.coll_breakdown.items()},
         model_flops_global=model_flops(cfg, shape),
         chips=chips,
     )

@@ -214,9 +214,8 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> LoweringSpec
     optimizer = make_optimizer_for(cfg)
     pstruct, pspecs = params_struct_and_specs(cfg, rules)
     flat_specs = _flat(pspecs)
-    whole = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-             for k, v in _flat(pstruct).items()}
-    ostate = _record(optimizer.init(whole))
+    whole = _flat(pstruct)
+    ostate = optimizer.init(whole)
     ospecs = opt_state_pspecs(optimizer, whole, flat_specs)
     step = make_train_step(
         lambda m, b: mod.loss_fn(m.tree(), b, cfg, rules), optimizer,

@@ -38,7 +38,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.common.util import resolve_device
+from repro_torch.common.util import ShapeDtype, resolve_device
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -224,12 +224,11 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
-    """Meta tensors of the decode cache (the reference's
+    """``ShapeDtype`` records of the decode cache (the reference's
     ``ShapeDtypeStruct`` dict)."""
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     dt = dtype_of(cfg.dtype)
-    return {name: torch.empty(shape, dtype=dt, device="meta")
-            for name in ("self_k", "self_v", "cross_k", "cross_v")}
+    return {name: ShapeDtype(shape, dt) for name in ("self_k", "self_v", "cross_k", "cross_v")}
 
 
 def cache_pspecs(cfg: ModelConfig, rules) -> Dict[str, Any]:

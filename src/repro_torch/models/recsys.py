@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.common.util import resolve_device
+from repro_torch.common.util import ShapeDtype, resolve_device
 from repro_torch.data.synth import RMDataConfig
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import entry_axes, shard
@@ -162,8 +162,8 @@ def state_pspecs(cfg: RecSysConfig, rules, optimizer) -> Dict[str, Any]:
     schema = model_schema(cfg)
     shapes = {"tables": schema["tables"].shape,
               **{f"{g}.{k}": d.shape for g in GROUPS for k, d in schema[g].items()}}
-    meta = {k: torch.empty(v, device="meta") for k, v in shapes.items()}
-    return state_shardings(optimizer, meta, flat_param_pspecs(cfg, rules))
+    records = {k: ShapeDtype(tuple(v), torch.float32) for k, v in shapes.items()}
+    return state_shardings(optimizer, records, flat_param_pspecs(cfg, rules))
 
 
 def params_to_numpy(model: DLRM) -> Dict[str, Any]:

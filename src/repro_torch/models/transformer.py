@@ -106,7 +106,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.common.util import resolve_device
+from repro_torch.common.util import ShapeDtype, resolve_device
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import block_shape, entry_axes, reshard, shard, spec_size
 from repro_torch.models import moe, ssm
@@ -334,6 +334,33 @@ def _head_split(cfg: ModelConfig, rules) -> Tuple[int, int]:
     return n, tp_index(rules, "heads")
 
 
+def _head_range(cfg: ModelConfig, rules) -> Tuple[int, int]:
+    """This rank's q heads [lo, hi): its block of the heads, or, where the
+    heads' mesh axes do not divide them (llama4's 40 heads over 16 ranks),
+    rank r of n runs heads [r H // n, (r + 1) H // n), whose weights it
+    cuts from the gathered whole (``_uneven_block``)."""
+    n = tp_size(rules, "heads")
+    if tp_axes(rules, "kv_heads") not in ((), tp_axes(rules, "heads")):
+        raise ValueError("kv_heads must split over the heads' mesh axes or none")
+    if cfg.n_heads < n:
+        raise ValueError(f"{cfg.n_heads} heads do not split into {n} blocks: a rank would "
+                         f"hold none")
+    r = tp_index(rules, "heads")
+    return r * cfg.n_heads // n, (r + 1) * cfg.n_heads // n
+
+
+def _uneven_block(w: torch.Tensor, cfg: ModelConfig, rules, dim: int) -> torch.Tensor:
+    """The rank's heads' part of a heads-split weight's block `w` (axis
+    `dim` of hd-wide heads): the block itself where the heads divide their
+    axes; else the whole axis gathered and cut to ``_head_range``.  Each
+    rank's gradient then reaches its own heads' part alone, and the
+    gather's backward sums the parts."""
+    if cfg.n_heads % tp_size(rules, "heads") == 0:
+        return w
+    lo, hi = _head_range(cfg, rules)
+    return tp_gather(w, rules, "heads", dim).narrow(dim, lo * cfg.hd, (hi - lo) * cfg.hd)
+
+
 def _kv_split(cfg: ModelConfig, rules) -> bool:
     """Whether the kv projections stay split over the heads' axes (the
     reference's ``_kv_axis``: only where the kv heads divide the axis)."""
@@ -346,14 +373,15 @@ def _qkv(p, xn: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, rules):
     divide the heads' axis (``_kv_split``)."""
     b, s, _ = xn.shape
     dt = xn.dtype
-    n, _ = _head_split(cfg, rules)
+    lo, hi = _head_range(cfg, rules)
     xn = tp_copy(xn, rules, "heads")
-    wq = load_weight(p["attn"]["wq"], rules, None, "heads", dtype=dt)
+    wq = _uneven_block(load_weight(p["attn"]["wq"], rules, None, "heads", dtype=dt), cfg,
+                       rules, 1)
     wk = load_weight(p["attn"]["wk"], rules, None, "kv_heads", dtype=dt)
     wv = load_weight(p["attn"]["wv"], rules, None, "kv_heads", dtype=dt)
     if not _kv_split(cfg, rules):
         wk, wv = tp_gather(wk, rules, "kv_heads", 1), tp_gather(wv, rules, "kv_heads", 1)
-    hl, kl = cfg.n_heads // n, wk.shape[1] // cfg.hd
+    hl, kl = hi - lo, wk.shape[1] // cfg.hd
     q = apply_rope((xn @ wq).reshape(b, s, hl, cfg.hd), positions, cfg.rope_theta)
     k = apply_rope((xn @ wk).reshape(b, s, kl, cfg.hd), positions, cfg.rope_theta)
     v = (xn @ wv).reshape(b, s, kl, cfg.hd)
@@ -365,21 +393,25 @@ def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, rules):
     `k` and `v` themselves where they are the rank's block; where every kv
     head is held (``_kv_split`` false on a split mesh), the heads of the
     rank's q heads' groups."""
-    n, r = _head_split(cfg, rules)
-    if n == 1 or _kv_split(cfg, rules):
+    lo, hi = _head_range(cfg, rules)
+    if tp_size(rules, "heads") == 1 or _kv_split(cfg, rules):
         return k, v
-    g, hl = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // n
-    if hl % g and g % hl:
-        raise ValueError(f"a block of {hl} q heads straddles kv groups of {g}")
-    lo, hi = r * hl // g, ((r + 1) * hl - 1) // g + 1
-    return k[:, :, lo:hi], v[:, :, lo:hi]
+    g = cfg.n_heads // cfg.n_kv_heads
+    k_lo, k_hi = lo // g, (hi - 1) // g + 1
+    kl = k_hi - k_lo
+    # the attention groups the rank's q heads evenly over its kv heads
+    if (hi - lo) % kl or any((lo + j) // g - k_lo != j // ((hi - lo) // kl)
+                             for j in range(hi - lo)):
+        raise ValueError(f"q heads [{lo}, {hi}) straddle kv groups of {g}")
+    return k[:, :, k_lo:k_hi], v[:, :, k_lo:k_hi]
 
 
 def _attn_out(p, out: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
     """The output projection of the rank's heads (B, S, heads, hd), summed
     over the heads' axes."""
     b, s = out.shape[:2]
-    wo = load_weight(p["attn"]["wo"], rules, "heads", None, dtype=out.dtype)
+    wo = _uneven_block(load_weight(p["attn"]["wo"], rules, "heads", None, dtype=out.dtype),
+                       cfg, rules, 0)
     return tp_sum(out.reshape(b, s, out.shape[2] * cfg.hd) @ wo, rules, "heads")
 
 
@@ -543,24 +575,20 @@ def loss_fn(
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
-    """Meta tensors of the decode cache tree (the reference's
+    """``ShapeDtype`` records of the decode cache tree (the reference's
     ``ShapeDtypeStruct`` tree)."""
     np_, hd, k = cfg.n_periods, cfg.hd, cfg.n_kv_heads
     dt = dtype_of(cfg.dtype)
-
-    def meta(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
     out: Dict[str, Any] = {}
     for i, spec in enumerate(cfg.period()):
         if spec.kind == "attn":
             shape = (np_, batch, max_seq, k, hd)
-            out[f"p{i}"] = {"k": meta(shape, dt), "v": meta(shape, dt)}
+            out[f"p{i}"] = {"k": ShapeDtype(shape, dt), "v": ShapeDtype(shape, dt)}
         else:
             d_in, h, p, n = ssm.ssm_dims(cfg)
             out[f"p{i}"] = {
-                "h": meta((np_, batch, h, p, n), torch.float32),
-                "conv": meta((np_, batch, cfg.conv_width - 1, d_in + 2 * n), dt),
+                "h": ShapeDtype((np_, batch, h, p, n), torch.float32),
+                "conv": ShapeDtype((np_, batch, cfg.conv_width - 1, d_in + 2 * n), dt),
             }
     return out
 
@@ -654,11 +682,25 @@ def decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, valid: to
     if tp_axes(rules, "heads") != (cp_axis,):
         raise ValueError(f"heads split over {tp_axes(rules, 'heads')}, the sequence over "
                          f"{cp_axis}")
-    hl = q.shape[2]
-    out = cp_decode_attention(tp_gather(q, rules, "heads", 2), kc, vc, valid, mesh=mesh,
+    lo, hi = _head_range(cfg, rules)
+    out = cp_decode_attention(_gather_heads(q, cfg, rules), kc, vc, valid, mesh=mesh,
                               axis=cp_axis, **kw)
-    r = tp_index(rules, "heads")
-    return out[:, :, r * hl:(r + 1) * hl]
+    return out[:, :, lo:hi]
+
+
+def _gather_heads(q: torch.Tensor, cfg: ModelConfig, rules) -> torch.Tensor:
+    """Every q head (B, 1, H, hd) from the ranks' ``_head_range``s: where
+    the ranges are uneven each is padded to the longest before the gather
+    and the padding dropped after (a decode step: no backward)."""
+    n = tp_size(rules, "heads")
+    if cfg.n_heads % n == 0:
+        return tp_gather(q, rules, "heads", 2)
+    m = -(-cfg.n_heads // n)
+    pad = torch.zeros(*q.shape[:2], m - q.shape[2], q.shape[3], dtype=q.dtype, device=q.device)
+    whole = tp_gather(torch.cat([q, pad], dim=2), rules, "heads", 2)
+    keep = [r * m + j for r in range(n)
+            for j in range((r + 1) * cfg.n_heads // n - r * cfg.n_heads // n)]
+    return whole.index_select(2, torch.tensor(keep, device=q.device))
 
 
 def write_token_kv(lcache: Dict[str, torch.Tensor], kt: torch.Tensor, vt: torch.Tensor,

@@ -38,6 +38,8 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.common.util import ShapeDtype
+
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import entry_axes
 
@@ -67,6 +69,15 @@ def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.1):
 # -- global-norm clipping ---------------------------------------------------------
 
 
+def _zeros(shape, dtype: torch.dtype, like):
+    """Zeros of `shape` on `like`'s device; where `like` is a ``ShapeDtype``
+    record, their record (a state's shapes with no storage: the reference's
+    ``eval_shape`` of ``init``)."""
+    if isinstance(like, ShapeDtype):
+        return ShapeDtype(tuple(shape), dtype)
+    return torch.zeros(shape, dtype=dtype, device=like.device)
+
+
 def _chunks(t: torch.Tensor):
     """Views of `t` along its first axis, each of at most CHUNK_ELEMS
     elements (a whole tensor when it is small)."""
@@ -77,12 +88,14 @@ def _chunks(t: torch.Tensor):
 
 def leaf_squares(grads: Tensors) -> Tensors:
     """Each gradient's sum of squares, an f32 scalar tensor by name: for an
-    f32 gradient on the card, one read (``_foreach_norm``); otherwise (on
-    the CPU, where norms accumulate in order and are 1e-4 off at 5M
-    elements, or a bf16 gradient, whose f32 copy would double it)
-    torch.sum's pairwise sums of the f32 squares, chunk by chunk."""
+    f32 gradient on the card (or on meta, a dry run's stand-in for it), one
+    read (``_foreach_norm``); otherwise (on the CPU, where norms accumulate
+    in order and are 1e-4 off at 5M elements, or a bf16 gradient, whose f32
+    copy would double it) torch.sum's pairwise sums of the f32 squares,
+    chunk by chunk."""
     out: Tensors = {}
-    f32 = [k for k, g in grads.items() if g.device.type == "cuda" and g.dtype == torch.float32]
+    f32 = [k for k, g in grads.items()
+           if g.device.type in ("cuda", "meta") and g.dtype == torch.float32]
     if f32:
         norms = torch._foreach_norm([grads[k] for k in f32])
         out.update({k: torch.square(n) for k, n in zip(f32, norms)})
@@ -156,7 +169,8 @@ class Layout:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    # (params (name -> tensor)[, layout]) -> state
+    # (params (name -> tensor)[, layout]) -> state; over ``ShapeDtype``
+    # records, the state's records
     init: Callable[..., Dict[str, Any]]
     # (grads, state, params[, sq_sum, layout]) -> (state, metrics); params,
     # state and grads are updated in place; under a mesh, sq_sum makes the
@@ -169,12 +183,11 @@ def adamw(
     weight_decay: float = 0.0, clip_norm: float = 1.0,
 ) -> Optimizer:
     def init(params: Tensors, layout: Layout | None = None) -> Dict[str, Any]:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
-        device = next(iter(params.values())).device
+        zeros = lambda p: _zeros(p.shape, torch.float32, p)  # noqa: E731
         return {
             "m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},
-            "count": torch.zeros((), dtype=torch.int32, device=device),
+            "count": _zeros((), torch.int32, next(iter(params.values()))),
         }
 
     @torch.no_grad()
@@ -305,14 +318,14 @@ def adafactor(
 
     def init(params: Tensors, layout: Layout | None = None) -> Dict[str, Any]:
         def st(name, p):
-            zeros = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)  # noqa: E731
+            zeros = lambda shape: _zeros(shape, torch.float32, p)  # noqa: E731
+            shape = tuple(p.shape)
             if factored(whole(name, p, layout)):
-                return {"vr": zeros(p.shape[:-1]), "vc": zeros(p.shape[:-2] + p.shape[-1:])}
-            return {"v": zeros(p.shape)}
+                return {"vr": zeros(shape[:-1]), "vc": zeros(shape[:-2] + shape[-1:])}
+            return {"v": zeros(shape)}
 
-        device = next(iter(params.values())).device
         return {"f": {k: st(k, p) for k, p in params.items()},
-                "count": torch.zeros((), dtype=torch.int32, device=device)}
+                "count": _zeros((), torch.int32, next(iter(params.values())))}
 
     @torch.no_grad()
     def update(grads: Tensors, state: Dict[str, Any], params: Tensors,

@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.common.util import ShapeDtype
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import entry_axes, reshard, spec_axes
 from repro_torch.train.compression import crosspod_compressed_mean, init_error_state
@@ -78,6 +79,11 @@ def init_state(model: nn.Module, optimizer: Optimizer, *, with_err: bool = False
     return state
 
 
+def _records(params: Dict[str, Any]) -> Dict[str, ShapeDtype]:
+    """The f32 ``ShapeDtype`` record of each parameter's shape."""
+    return {k: ShapeDtype(tuple(p.shape), torch.float32) for k, p in params.items()}
+
+
 def opt_state_pspecs(optimizer: Optimizer, params: Dict[str, torch.Tensor],
                      param_specs: Dict[str, tuple]) -> Dict[str, Any]:
     """Specs of the optimizer state from the parameters' global shapes, by
@@ -87,7 +93,7 @@ def opt_state_pspecs(optimizer: Optimizer, params: Dict[str, torch.Tensor],
     row or column mean) the spec of the first parameter of which it is the
     shape with the last axis, or the second-to-last, dropped, that axis's
     entry dropped with it; scalars and unmatched leaves replicate."""
-    state = optimizer.init({k: torch.empty(p.shape, device="meta") for k, p in params.items()})
+    state = optimizer.init(_records(params))
     by_shape: Dict[tuple, tuple] = {}
     for name in sorted(params, key=lambda k: k.split(".")):
         by_shape.setdefault(tuple(params[name].shape), tuple(param_specs[name]))
@@ -117,14 +123,15 @@ def natural_opt_specs(optimizer: Optimizer, params: Dict[str, torch.Tensor],
     its own parameter's spec (a row mean ``vr`` without the last axis's
     entry, a column mean ``vc`` without the second-to-last's); scalars
     replicate."""
-    state = optimizer.init({k: torch.empty(p.shape, device="meta") for k, p in params.items()})
+    state = optimizer.init(_records(params))
 
     def match(node, key=None, name=None):
         if isinstance(node, dict):
             return {k: match(v, k, k if k in params else name) for k, v in node.items()}
-        if node.dim() == 0 or name is None:
+        if not node.shape or name is None:
             return ()
-        spec = tuple(param_specs[name]) + (None,) * (params[name].dim() - len(param_specs[name]))
+        spec = tuple(param_specs[name]) + (None,) * (len(params[name].shape)
+                                                     - len(param_specs[name]))
         if key == "vr":
             return spec[:-1]
         if key == "vc":
@@ -148,8 +155,7 @@ def opt_layouts(optimizer: Optimizer, layout: Layout,
     """(the reference's specs of the optimizer state, ``opt_state_pspecs``;
     the update's, ``natural_opt_specs``) for a rank's parameter blocks
     `params` placed by `layout`."""
-    whole = {k: torch.empty(layout.global_shape(k, p.shape), device="meta")
-             for k, p in params.items()}
+    whole = {k: ShapeDtype(layout.global_shape(k, p.shape), p.dtype) for k, p in params.items()}
     return (opt_state_pspecs(optimizer, whole, layout.specs),
             natural_opt_specs(optimizer, whole, layout.specs))
 

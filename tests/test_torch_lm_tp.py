@@ -20,13 +20,20 @@ are ``test_torch_lm_tp_moe.py``; the machinery and the checks are
 * the collectives of a prefill: one gather per FSDP weight read, one psum
   per row-parallel product;
 * a global-format checkpoint of h2o's state after the step, saved from
-  (2, 2), restores on one device bitwise the ranks' blocks put together.
+  (2, 2), restores on one device bitwise the ranks' blocks put together;
+* the dry run's trace of rank 0's h2o train and decode cells on a mesh
+  with no world counts the collectives the world's rank 0 made.
 """
 
 import pytest
+import torch
 
 import torch_lm_tp_ranks as R
 import torch_lm_tp_util as U
+from repro_torch.distributed.comm import KINDS
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import specs, trace_cost
+from repro_torch.launch.mesh import Mesh
 
 ARCHS = ("h2o-danube-1.8b", "mamba2-1.3b", "seamless-m4t-medium", U.KV_ARCH)
 
@@ -118,3 +125,30 @@ def test_a_meshed_checkpoint_restores_on_one_device_bitwise(world, ckpt_dir):
     and optimizer state restore on one device into the global arrays that
     the ranks' blocks make up, bit for bit."""
     U.check_checkpoint(world, ckpt_dir, CKPT_ARCH)
+
+
+@pytest.mark.parametrize("arch", ("h2o-danube-1.8b",))
+def test_a_dry_rank_counts_the_collectives_of_the_worlds_rank_0(world, arch):
+    """Rank 0's cells on a (2, 2) mesh with no world behind it
+    (``launch.specs.build_*_cell``, traced on meta tensors by
+    ``launch.trace_cost``): its train step and each decode step make the
+    calls, and move the bytes, by kind that the gloo world's rank 0
+    counted on real tensors."""
+    cfg = R.tp_config(arch)
+    mesh = Mesh(dict(zip(("data", "model"), U.mesh_of(arch))), 0, torch.device("meta"), "none")
+    cells = R.shapes(U.B, U.S_TRAIN, U.MAX_SEQ)
+    got = world[arch][0]
+
+    def dry(kind, cache_len=None):
+        build = specs.build_train_cell if kind == "train" else specs.build_decode_cell
+        spec = build(cfg, cells[kind], mesh)
+        args = D.meta_args(spec, cells[kind])
+        if cache_len is not None:
+            args[3] = cache_len
+        cost = trace_cost.analyze(spec.fn, args, counter=mesh.counter)
+        return ({k: cost.coll_calls[k] for k in KINDS},
+                {k: int(cost.coll_breakdown[k]) for k in KINDS})
+
+    assert dry("train") == (got["train"]["calls"], got["train"]["bytes"])
+    for i, comm_i in enumerate(got["decode_comm"]):
+        assert dry("decode", U.PROMPT + i) == tuple(comm_i)

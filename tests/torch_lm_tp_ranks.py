@@ -25,12 +25,12 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.step import state_shardings
 
 
-def tp_config(arch: str):
+def tp_config(arch: str, overrides=None):
     """The reduced `arch` under its full config's sharding rule and optimizer
-    (the reduced configs carry neither)."""
+    (the reduced configs carry neither), with `overrides` of its fields."""
     full = get_arch(arch).config
     return dataclasses.replace(get_arch(arch).reduced, sharding_overrides=full.sharding_overrides,
-                               optimizer=full.optimizer)
+                               optimizer=full.optimizer, **(overrides or {}))
 
 
 def shapes(b: int, s: int, max_seq: int) -> dict:
@@ -63,14 +63,16 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def arch_case(mesh, arch: str, tree, batch: dict, prompts, steps: int, max_seq: int,
-              frames=None, ckpt=None) -> dict:
+              frames=None, ckpt=None, overrides=None) -> dict:
     """One arch on this rank: its parameter blocks, one train step of its
     rows (loss, averaged gradients, updated blocks and optimizer state;
     saved in the global format under `ckpt` where it is given), prefill
     (the enc-dec's encode) under the prefill rules with the collectives it
     made, and `steps` greedy decode steps under the decode rules from the
-    prefill's caches, resharded."""
-    cfg = tp_config(arch)
+    prefill's caches, resharded, with each step's collectives.  The train
+    step's collectives (calls and bytes by kind) are kept too.
+    `overrides` change the config's fields (``tp_config``)."""
+    cfg = tp_config(arch, overrides)
     mod = E if cfg.is_encdec else T
     b, s = prompts.shape[0], prompts.shape[1]
     cells = shapes(b, batch["tokens"].shape[1], max_seq)
@@ -94,7 +96,7 @@ def arch_case(mesh, arch: str, tree, batch: dict, prompts, steps: int, max_seq: 
     out["train"] = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": seen,
                     "params": {k: _np(p) for k, p in model.named_parameters()},
                     "opt": _tree_np(state["opt"]),
-                    "calls": dict(mesh.counter.calls)}
+                    "calls": dict(mesh.counter.calls), "bytes": dict(mesh.counter.bytes)}
     if ckpt is not None:
         whole_meta = {k: torch.empty(v.shape, device="meta") for k, v in _flat(whole).items()}
         CheckpointManager(ckpt, async_save=False).save(
@@ -121,9 +123,11 @@ def arch_case(mesh, arch: str, tree, batch: dict, prompts, steps: int, max_seq: 
     caches = T.reshard_caches(caches, cfg, prules, drules, pspec_fn=mod.cache_pspecs)
     out["decode_caches_before"] = _tree_np(caches)
     dparams = _rank_params(whole, cfg, drules)
-    out["decode"] = []
+    out["decode"], out["decode_comm"] = [], []
     for i in range(steps):
+        mesh.counter.reset()
         logits, caches = mod.decode_step(dparams, tok, caches, start + i, cfg, drules, mesh=mesh)
+        out["decode_comm"].append((dict(mesh.counter.calls), dict(mesh.counter.bytes)))
         logits = T.gather_logits(logits, drules)
         out["decode"].append(_np(logits))
         tok = _greedy(logits)

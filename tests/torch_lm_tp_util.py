@@ -85,10 +85,12 @@ def numpy_params(schema, rng) -> dict:
     return {k: numpy_params(v, rng) for k, v in schema.items()}
 
 
-def make_inputs(archs) -> dict:
+def make_inputs(archs, overrides=None) -> dict:
+    """Seeded weights, a batch and prompts of each arch (its config's fields
+    changed by `overrides`, kept in the case for the rank program)."""
     cases = {}
     for i, arch in enumerate(archs):
-        cfg = R.tp_config(arch)
+        cfg = R.tp_config(arch, overrides)
         rng = np.random.default_rng(10 + i)
         tree = numpy_params((E if cfg.is_encdec else T).model_schema(cfg), rng)
         toks = rng.integers(1, cfg.vocab_size, (B, S_TRAIN + 1)).astype(np.int32)
@@ -100,7 +102,7 @@ def make_inputs(archs) -> dict:
             batch["frames"] = frames
         cases[arch] = dict(arch=arch, tree=tree, batch=batch, steps=STEPS, max_seq=MAX_SEQ,
                            prompts=rng.integers(1, cfg.vocab_size, (B, PROMPT)).astype(np.int32),
-                           frames=frames)
+                           frames=frames, overrides=overrides)
     return cases
 
 
@@ -226,7 +228,7 @@ def one_device(cases) -> dict:
     """The port's one-device prefill (encode) and greedy decode of each arch."""
     out = {}
     for arch, c in cases.items():
-        cfg = R.tp_config(arch)
+        cfg = R.tp_config(arch, c.get("overrides"))
         mod = E if cfg.is_encdec else T
         rules = S.ShardingRules.make(None)
         params = mod.params_from_numpy(c["tree"], cfg, "cpu")
