@@ -303,7 +303,7 @@ SERVICE_DRILLS = (
 )
 PIPELINE_STEPS = 4  # train steps fed by a service session over the 4 classic files
 TRAIN_LR = (3e-4, 2, 100)  # peak, warmup and total steps of the schedule
-TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # record_function ranges of the port
+TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # the port's spans (common.util.span)
 # the training driver at full width (launch.train --mode recsys): 4 steps fed
 # by 2 service workers over 6 source partitions, rm2 and then CKPT_CONFIG with
 # its checkpoint.  A call of the GPU machine may write 45 GiB to its disk, and
@@ -2064,7 +2064,7 @@ def train_split(prof) -> float | None:
     from torch.autograd import DeviceType
 
     rows = prof.key_averages()
-    # the record_function ranges also show as spans on the device's timeline
+    # a range named like a span on the device's timeline is not a kernel
     kernels = [(e.key, e.count, e.device_time_total) for e in rows
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0
                and e.key not in TRAIN_RANGES]

@@ -1,13 +1,12 @@
 """Small shared utilities of the port: the device an entry point runs on,
-the card's line, timing, tree accounting and formatting (the port of
-``repro.common.util``).  A tree is a nested dict, list or tuple of tensors,
-numpy arrays or ``ShapeDtype`` records, or an ``nn.Module``."""
+the card's line, profiler spans, tree accounting and formatting (the port
+of ``repro.common.util``).  A tree is a nested dict, list or tuple of
+tensors, numpy arrays or ``ShapeDtype`` records, or an ``nn.Module``."""
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
-from typing import Any, Iterator, List, NamedTuple
+import contextlib
+from typing import Any, List, NamedTuple
 
 import numpy as np
 import torch
@@ -53,31 +52,27 @@ class ShapeDtype(NamedTuple):
     dtype: torch.dtype
 
 
-class Timer:
-    """Wall-clock timer usable as context manager or start/stop pairs."""
-
-    def __init__(self) -> None:
-        self.elapsed = 0.0
-        self._start: float | None = None
-
-    def __enter__(self) -> "Timer":
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc: Any) -> None:
-        assert self._start is not None
-        self.elapsed += time.perf_counter() - self._start
-        self._start = None
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+NO_SPAN = contextlib.nullcontext()  # the one context of every span not recorded
 
 
-@contextmanager
-def timed(label: str, sink: dict | None = None) -> Iterator[None]:
-    """Add the block's wall seconds to ``sink[label]``."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if sink is not None:
-        sink[label] = sink.get(label, 0.0) + dt
+def span(name: str):
+    """A context that marks its block as the host range `name` in a
+    ``torch.profiler`` trace, on the profiler's own clock: the device work
+    launched inside it lies under the range (the launch and its kernel
+    share ``args.correlation``).
+
+    While the calling thread has no profiler running it returns
+    ``NO_SPAN``, after one flag check (~0.4 us).  With one running, it
+    returns a ``RecordFunction`` range, which is recorded (as a ``cpu_op``
+    event) only where the profiler records host activity: a profiler of
+    the device alone keeps no host range, and there the range costs ~1 us
+    where ``torch.profiler.record_function`` costs ~14 us.  A thread the
+    profiler was not enabled on (a pool worker) records nothing."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(name)
+    return NO_SPAN
 
 
 def tree_leaves(tree: Any) -> List[Any]:

@@ -49,7 +49,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.util import resolve_device
+from repro_torch.common.util import resolve_device, span
 from repro_torch.core.spec import TransformSpec
 from repro_torch.kernels import FUSED_KERNELS, OP_KERNELS, ROW_LOCAL_KINDS
 from repro_torch.kernels import ops as K
@@ -213,9 +213,10 @@ def prepare_env(pages: Dict[str, torch.Tensor], gen_index: torch.Tensor) -> Dict
     ``gen_words`` (the generated features' source planes) is a gather of
     dense pages by ``gen_index`` (``spec.generated_source`` on the pages'
     device) — computed here so the gen family never depends on the dense
-    family's placement."""
+    family's placement.  The gather runs in the span ``opgraph.gen_words``."""
     env = dict(pages)
-    env["gen_words"] = pages["dense_words"].index_select(0, gen_index)
+    with span("opgraph.gen_words"):
+        env["gen_words"] = pages["dense_words"].index_select(0, gen_index)
     return env
 
 
@@ -432,15 +433,16 @@ def _op_fn(node: OpNode, spec: TransformSpec, device: torch.device) -> Callable[
         def form_batch(dense_norm, sparse_hashed, lengths_i32, labels_f32,
                        gen_hashed):
             rows = labels_f32.shape[0]
-            return ({
-                "dense": dense_norm.t().contiguous(),
-                "multi_hot_ids": sparse_hashed.reshape(
-                    cfg.n_sparse, rows, cfg.max_sparse_len
-                ).permute(1, 0, 2).contiguous(),
-                "lengths": lengths_i32.contiguous(),
-                "one_hot_ids": gen_hashed.t().contiguous(),
-                "labels": labels_f32.contiguous(),
-            },)
+            with span("opgraph.form_batch"):  # the transposes' copies
+                return ({
+                    "dense": dense_norm.t().contiguous(),
+                    "multi_hot_ids": sparse_hashed.reshape(
+                        cfg.n_sparse, rows, cfg.max_sparse_len
+                    ).permute(1, 0, 2).contiguous(),
+                    "lengths": lengths_i32.contiguous(),
+                    "one_hot_ids": gen_hashed.t().contiguous(),
+                    "labels": labels_f32.contiguous(),
+                },)
 
         return form_batch
     raise TypeError(f"unknown node type {type(node).__name__}")

@@ -37,6 +37,7 @@ import time
 import warnings
 from typing import Callable, Iterable, Optional
 
+from repro_torch.common.util import span
 from repro_torch.core.opgraph import group_times_by_placement, time_stages
 from repro_torch.core.planner import (
     PlacementProvisioning,
@@ -136,6 +137,8 @@ class TrainingPipeline:
 
         Stops after ``max_steps`` (cancelling the rest of the job so its pool
         units go back to other tenants) or when the session is exhausted.
+        Each step, with the read of its metrics, runs in the span
+        ``pipeline.step`` (``common.util.span``).
         """
         assert self.train_step is not None, "run_session needs a train_step"
         stats = PipelineStats()
@@ -146,9 +149,10 @@ class TrainingPipeline:
             for pid, mb in session:
                 stats.starved_time_s += time.perf_counter() - q0
                 t0 = time.perf_counter()
-                state, metrics = self.train_step(state, mb)
-                # reading the metrics waits for the step's device work
-                metrics = {k: float(v) for k, v in metrics.items()}
+                with span("pipeline.step"):
+                    state, metrics = self.train_step(state, mb)
+                    # reading the metrics waits for the step's device work
+                    metrics = {k: float(v) for k, v in metrics.items()}
                 stats.train_time_s += time.perf_counter() - t0
                 stats.steps += 1
                 metrics_log.append(metrics)

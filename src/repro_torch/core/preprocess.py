@@ -14,7 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.common.util import ShapeDtype
+from repro_torch.common.util import ShapeDtype, span
 from repro_torch.core.opgraph import (
     LoweredPlan,
     build_transform_graph,
@@ -123,22 +123,24 @@ def flatten_megabatch(stacked: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
     the standard Transform is row-local — so a K-partition megabatch is
     exactly a single partition with K x the rows: ``(K, F, G, w)`` becomes
     ``(F, K*G, w)`` (partition-major row order) and ``(K, R)`` becomes
-    ``(K*R,)``."""
+    ``(K*R,)``.  Its device work (the refs' offsets; the copies of K > 1)
+    runs in the span ``preprocess.flatten_megabatch``."""
     out: Dict[str, torch.Tensor] = {}
-    for name, v in stacked.items():
-        if name == "sparse_refs":
-            # (K, rows) block refs -> (K*rows,) into the K*u flattened unique
-            # blocks: partition k's blocks land at offset k*u once the
-            # sparse/length pages fold their own row-group axes below
-            k = v.shape[0]
-            u = stacked["length_words"].shape[2] * 32
-            off = torch.arange(k, dtype=v.dtype, device=v.device)[:, None] * u
-            out[name] = (v + off).reshape(-1)
-        elif v.dim() == 2:  # label_words: (K, rows) -> (K*rows,)
-            out[name] = v.reshape(-1)
-        else:  # (K, F, G, w) -> (F, K*G, w)
-            k, f, g, w = v.shape
-            out[name] = v.movedim(0, 1).reshape(f, k * g, w)
+    with span("preprocess.flatten_megabatch"):
+        for name, v in stacked.items():
+            if name == "sparse_refs":
+                # (K, rows) block refs -> (K*rows,) into the K*u flattened
+                # unique blocks: partition k's blocks land at offset k*u once
+                # the sparse/length pages fold their own row-group axes below
+                k = v.shape[0]
+                u = stacked["length_words"].shape[2] * 32
+                off = torch.arange(k, dtype=v.dtype, device=v.device)[:, None] * u
+                out[name] = (v + off).reshape(-1)
+            elif v.dim() == 2:  # label_words: (K, rows) -> (K*rows,)
+                out[name] = v.reshape(-1)
+            else:  # (K, F, G, w) -> (F, K*G, w)
+                k, f, g, w = v.shape
+                out[name] = v.movedim(0, 1).reshape(f, k * g, w)
     return out
 
 
@@ -156,7 +158,8 @@ def execute_plan(plan: LoweredPlan, pages: Dict[str, torch.Tensor]) -> MiniBatch
     device just before ``form_batch``.  Every sparse-chain operator is
     per-value row-local, so transform-then-expand is bitwise identical to
     expand-then-transform: the undeduped result, for fused, unfused and
-    hybrid lowerings alike."""
+    hybrid lowerings alike.  The expand runs in the span
+    ``preprocess.dedup_expand``."""
     if "sparse_refs" not in pages:
         return plan.execute(pages)
     pages = dict(pages)
@@ -165,12 +168,13 @@ def execute_plan(plan: LoweredPlan, pages: Dict[str, torch.Tensor]) -> MiniBatch
     env = prepare_env(pages, plan.gen_index)
     for st in plan.stages:
         if st.name == "form_batch":
-            sh = env["sparse_hashed"]  # (n_sparse, u*L) at unique geometry
-            s, ul = sh.shape
-            env["sparse_hashed"] = (
-                sh.reshape(s, ul // L, L).index_select(1, refs).reshape(s, -1)
-            )
-            env["lengths_i32"] = env["lengths_i32"].index_select(0, refs)
+            with span("preprocess.dedup_expand"):
+                sh = env["sparse_hashed"]  # (n_sparse, u*L) at unique geometry
+                s, ul = sh.shape
+                env["sparse_hashed"] = (
+                    sh.reshape(s, ul // L, L).index_select(1, refs).reshape(s, -1)
+                )
+                env["lengths_i32"] = env["lengths_i32"].index_select(0, refs)
         env.update(zip(st.outputs, st.fn(*(env[k] for k in st.inputs))))
     return env["minibatch"]
 

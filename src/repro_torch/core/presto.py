@@ -59,7 +59,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.util import resolve_device
+from repro_torch.common.util import resolve_device, span
 from repro_torch.core.costmodel import DEFAULT_PLACEMENT_MODEL, partition_costs
 from repro_torch.core.opgraph import (
     FAMILIES,
@@ -341,9 +341,16 @@ class TorchPreStoEngine:
         batches and the event that marks them done (None on the CPU, where
         the batches are complete on return); ``deliver`` waits on it.  The
         one dispatch pair of every producer: ``produce_batches``,
-        ``produce_stream`` and the service's pool workers."""
-        with self._on_device():
-            batches = self.preprocess_megabatch(self.put_pages(pinned))
+        ``produce_stream`` and the service's pool workers.
+
+        Spans (``common.util.span``): ``engine.launch`` around the call,
+        ``engine.copy_in`` around the copies enqueued and
+        ``engine.transform`` around the kernels enqueued."""
+        with span("engine.launch"), self._on_device():
+            with span("engine.copy_in"):
+                pages = self.put_pages(pinned)
+            with span("engine.transform"):
+                batches = self.preprocess_megabatch(pages)
             if self.device.type == "cpu":
                 return batches, None
             done = torch.cuda.Event()

@@ -281,6 +281,12 @@ class SessionStats:
     effective_demand_units: int = 1  # demand after the hit-rate discount
     rows_delivered: int = 0
     produce_time_s: float = 0.0  # pool-worker seconds spent on this job
+    # two parts of produce_time_s, counted on the pool workers, which a
+    # profiler enabled on the consumer's thread does not see: the chunks'
+    # staging (read, page build, pin) and the workers' wait in
+    # ``engine.deliver`` (the Transform queued behind other device work)
+    stage_time_s: float = 0.0
+    deliver_wait_s: float = 0.0
     wait_time_s: float = 0.0  # consumer seconds blocked on the stream
     wall_time_s: float = 0.0
     demand_units: int = 1
@@ -515,6 +521,8 @@ class Session:
         self._duplicates = 0
         self._rows_delivered = 0
         self._produce_time = 0.0
+        self._stage_time = 0.0
+        self._deliver_wait = 0.0
         self._wait_time = 0.0
         self._cache_hits = 0
         self._cache_misses = 0
@@ -680,6 +688,8 @@ class Session:
                 duplicates_dropped=self._duplicates,
                 rows_delivered=self._rows_delivered,
                 produce_time_s=self._produce_time,
+                stage_time_s=self._stage_time,
+                deliver_wait_s=self._deliver_wait,
                 wait_time_s=self._wait_time,
                 wall_time_s=wall,
                 demand_units=self._demand,
@@ -1086,8 +1096,11 @@ class Session:
         this one's kernel ran; it is excluded from this chunk's produce time
         (it is charged to the next chunk's own ``stage_s``) so per-session
         ``produce_time_s`` and the planner's measured per-worker P never
-        double-count the overlapped staging."""
+        double-count the overlapped staging.  Of a chunk's produce seconds,
+        its ``stage_s`` and the wait in ``engine.deliver`` are counted apart
+        too (``SessionStats.stage_time_s``, ``deliver_wait_s``)."""
         kind, payload = handle
+        wait_s = 0.0
         try:
             if kind == "error":
                 for pid, _f, _r in chunk.claims:
@@ -1095,27 +1108,31 @@ class Session:
                 return
             if kind == "async":
                 launched, done = payload
+                t_wait = time.perf_counter()
                 try:
                     self.engine.deliver(done)
                 except BaseException as exc:  # noqa: BLE001
                     for pid, _f, _r in chunk.claims:
                         self._on_produce_error(pid, exc)
                     return
+                t_end = time.perf_counter()
+                wait_s = t_end - t_wait
                 batches = list(launched)
             else:
+                t_end = time.perf_counter()
                 batches = payload
-            dt = chunk.stage_s + max(
-                0.0, time.perf_counter() - chunk.t0 - overlap_s
-            )
-            share = dt / max(len(chunk.claims), 1)
+            dt = chunk.stage_s + max(0.0, t_end - chunk.t0 - overlap_s)
+            n = max(len(chunk.claims), 1)
+            share = dt / n
             if self._tuner is not None and chunk.pages is not None:
                 # the overlap-corrected launch seconds ARE the tuner's
                 # signal: staging paid by this chunk plus kernel time not
                 # hidden behind the next chunk's staging
                 if self._tuner.record(len(chunk.claims), dt):
                     self._on_tuned_k_changed()
+            parts = (chunk.stage_s / n, wait_s / n)
             for (pid, _f, route), batch in zip(chunk.claims, batches):
-                self._on_produced(pid, batch, share, route)
+                self._on_produced(pid, batch, share, route, parts)
         finally:
             for dev in chunk.devs:
                 self._route_end(dev)
@@ -1245,8 +1262,11 @@ class Session:
             return self._hit_rate_locked()
 
     def _on_produced(
-        self, pid: int, batch: Any, dt: float, route: Optional[str] = None
+        self, pid: int, batch: Any, dt: float, route: Optional[str] = None,
+        parts: Tuple[float, float] = (0.0, 0.0),
     ) -> None:
+        """Complete `pid`'s claim with `batch`, charging `dt` produce seconds,
+        of which `parts` are (staging, deliver wait)."""
         # the produce consumed real modeled resources wherever it ran —
         # winner or straggler duplicate alike (the work happened); the batch
         # BYTES are identical either way, only the ledgers differ
@@ -1275,6 +1295,8 @@ class Session:
         demand_changed = False
         with self._slock:
             self._produce_time += dt
+            self._stage_time += parts[0]
+            self._deliver_wait += parts[1]
             if not winner:
                 self._duplicates += 1
             else:

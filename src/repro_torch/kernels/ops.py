@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common.util import span
 from repro_torch.kernels import bucketize as _bk
 from repro_torch.kernels import decode as _dk
 from repro_torch.kernels import fused, ref
@@ -57,10 +58,12 @@ def u32_tensor(x, device: torch.device) -> torch.Tensor:
 
 
 def hash_params(seeds, max_values, device: torch.device) -> torch.Tensor:
-    """(F,) seeds and (F,) table sizes -> the (F, 2) [seed, max] params."""
-    return torch.stack(
-        [u32_tensor(seeds, device), u32_tensor(max_values, device)], dim=1
-    ).contiguous()
+    """(F,) seeds and (F,) table sizes -> the (F, 2) [seed, max] params,
+    stacked on `device` in the span ``ops.hash_params``."""
+    with span("ops.hash_params"):
+        return torch.stack(
+            [u32_tensor(seeds, device), u32_tensor(max_values, device)], dim=1
+        ).contiguous()
 
 
 def pad_boundaries(boundaries, device: torch.device) -> torch.Tensor:

@@ -14,8 +14,10 @@ Drives the preprocessing-as-a-service surface end to end: a
 its own partition range, placement, and (optional) QoS target; every tenant
 is drained by its own consumer thread that simulates a trainer (a fixed
 per-batch train time).  Prints the paper's Fig. 3 accounting per job —
-utilization, starvation, straggler re-issues, feature-cache hits — plus the
-pool's unit shares.
+utilization, starvation, straggler re-issues, feature-cache hits, the pool
+workers' produce seconds with their staging and ``engine.deliver`` wait
+parts (``SessionStats.stage_time_s``, ``deliver_wait_s``) — plus the pool's
+unit shares.
 
 With ``--cache`` the pool carries a shared content-addressed feature cache
 (``core.featcache``): tenants of the same RM generate identical partition
@@ -556,7 +558,7 @@ def main(argv=None) -> dict:
     print(f"\n{'job':<12} {'batches':>7} {'rows/s':>9} {'util':>6} "
           f"{'starve':>7} {'reissue':>7} {'dupes':>6} {'hits':>5} "
           f"{'blk':>7} {'fallbk':>6} {'tunedK':>6} {'staged':>8} "
-          f"{'prewrm':>6} {'share/demand':>13}")
+          f"{'prewrm':>6} {'produce':>8} {'stage':>7} {'dwait':>7} {'share/demand':>13}")
     for job in jobspecs:
         st = final_sessions[job.name].stats()
         result = results[job.name]
@@ -576,6 +578,9 @@ def main(argv=None) -> dict:
               f"{st.duplicates_dropped:>6} {st.cache_hits:>5} "
               f"{blk:>7} {st.host_fallbacks:>6} {st.tuned_k:>6} "
               f"{staged:>8} {st.prewarm_hits:>6} "
+              # worker seconds: produce, of which staging and deliver wait
+              f"{st.produce_time_s:>8.3f} {st.stage_time_s:>7.3f} "
+              f"{st.deliver_wait_s:>7.3f} "
               f"{st.share:>7}/{st.effective_demand_units}")
     total_rows = sum(s.stats().rows_delivered for s in final_sessions.values())
     print(f"\naggregate: {total_rows} rows in {wall:.1f}s "

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.common.util import ShapeDtype, resolve_device
+from repro_torch.common.util import ShapeDtype, resolve_device, span
 from repro_torch.data.synth import RMDataConfig
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import entry_axes, shard
@@ -214,7 +214,7 @@ def embedding_bag(
     each table's ids offset by t*R and the validity mask as per-sample
     weights: the (B, S, L, D) gather is never materialised, and the
     gradient of the tables is one dense (T, R, D) buffer."""
-    with torch.profiler.record_function("dlrm.embedding_bag"):
+    with span("dlrm.embedding_bag"):
         t, r, d = tables.shape
         b, s, L = multi_ids.shape
         g = one_ids.shape[1]
@@ -258,7 +258,7 @@ def sharded_embedding_bag(
     sum-pooled per bag by offsets; pooled sums and counts are then summed
     over `axis` and divided.  The table gradient is this rank's rows of the
     one-device gradient (``comm.psum``'s backward is the identity)."""
-    with torch.profiler.record_function("dlrm.embedding_bag"):
+    with span("dlrm.embedding_bag"):
         t, r, d = tables.shape
         b = multi_ids.shape[0]
         ids, valid, table_of, counts = _bag_ids(multi_ids, lengths, one_ids, r,

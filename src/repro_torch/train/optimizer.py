@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.common.util import ShapeDtype
+from repro_torch.common.util import ShapeDtype, span
 
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import entry_axes
@@ -193,7 +193,7 @@ def adamw(
     @torch.no_grad()
     def update(grads: Tensors, state: Dict[str, Any], params: Tensors,
                sq_sum: SqSum | None = None, layout: Layout | None = None):
-        with torch.profiler.record_function("adamw"):
+        with span("adamw"):
             scale, gnorm = _clip_scale(grads, clip_norm, sq_sum)
             count = state["count"] + 1
             lr = lr_fn(count).to(scale.device)
@@ -330,7 +330,7 @@ def adafactor(
     @torch.no_grad()
     def update(grads: Tensors, state: Dict[str, Any], params: Tensors,
                sq_sum: SqSum | None = None, layout: Layout | None = None):
-        with torch.profiler.record_function("adafactor"):
+        with span("adafactor"):
             scale, gnorm = _clip_scale(grads, clip_norm, sq_sum)
             count = state["count"] + 1
             lr = lr_fn(count).to(scale.device)
