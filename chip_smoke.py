@@ -48,6 +48,11 @@ just after:
   fault drill (transient, torn, spill and a device offline; no partition
   quarantined, the context survives); then a worker killed mid-read
   through the service API, its claims re-issued;
+* the DLRM's embedding bag (``phase_embedding``): the hand-written
+  forward and backward against the plain version at rm2's shapes (the
+  main path's first batch) and rm1's, the tables at full size, the
+  gradient held to a float64 bound and bit-identical over two backward
+  calls, one launch of each pass; then their kernel-table rows;
 * training: three reduced-width DLRM steps on the card against the CPU
   from the same weights, then the full RM2 DLRM (63 tables of 500,000 x 128
   floats, ~61 GiB with AdamW, freed after) for 8 train steps on the presto
@@ -55,6 +60,8 @@ just after:
   the step) on one partition, whose loss must fall, and 4 more steps from
   the same state through ``TrainingPipeline.run_session``, fed by a
   service session (2 workers) over the store's 4 classic partition files;
+  every train step launches the embedding bag's forward and backward
+  once each;
 * the training driver (``phase_driver``): ``repro_torch.launch.train.main``
   at full rm2 width (4 steps fed by a 2-worker service session over 6
   source partitions), then at full rm1 width with ``--ckpt-dir`` under
@@ -90,7 +97,7 @@ just after:
   presto with no collective call (paths "mesh presto", "mesh hybrid",
   "mesh disagg", "mesh unfused", each summed over the ranks); (b) the
   row-sharded bag over RM2's full tables on model = 4 against the
-  one-device bag and its table gradient; (c) three meshed train steps with
+  one-device plain bag and its table gradient; (c) three meshed train steps with
   the full tables split over 2 ranks against three one-device steps from
   the same params; (d) the int8-compressed step across 2 pods at 25,000
   table rows against the uncompressed meshed step; (e)
@@ -215,7 +222,11 @@ SOURCES = {
     "sigridhash": CSRC + "sigridhash.cu",
     "bucketize": CSRC + "bucketize.cu",
     "lognorm": CSRC + "lognorm.cu",
+    "embedding_bag": CSRC + "embedding.cu",
+    "embedding_bag.backward": CSRC + "embedding.cu",
 }
+# the JAX package pools with a plain gather and leaves the gradient to XLA
+BAG_REPLACES = "none: src/repro/models/recsys.py:97 _local_bag is a gather, no pallas_call"
 REPLACES = {
     "fused_dense": "src/repro/kernels/fused.py:32",
     "fused_sparse": "src/repro/kernels/fused.py:106",
@@ -226,7 +237,12 @@ REPLACES = {
     "sigridhash": "src/repro/kernels/sigridhash.py:43",
     "bucketize": "src/repro/kernels/bucketize.py:52",
     "lognorm": "src/repro/kernels/lognorm.py:25",
+    "embedding_bag": BAG_REPLACES,
+    "embedding_bag.backward": BAG_REPLACES,
 }
+# the DLRM's kernels: launched by a train step, once each a step, never by a
+# Transform plan
+MODEL_KERNELS = ("embedding_bag", "embedding_bag.backward")
 # the launch counter each lowered stage kind adds to; the lengths decode runs
 # B4 at the lengths' width and is counted apart ("bitunpack.lengths")
 STAGE_KERNELS = {
@@ -302,6 +318,7 @@ SERVICE_DRILLS = (
                        "--io-retries 4 --verify", 1),
 )
 PIPELINE_STEPS = 4  # train steps fed by a service session over the 4 classic files
+BAG_ROWS, BAG_SEED = 8192, 3  # the train cells' batch; the bag phase's draws
 TRAIN_LR = (3e-4, 2, 100)  # peak, warmup and total steps of the schedule
 TRAIN_RANGES = ("dlrm.embedding_bag", "adamw")  # the port's spans (common.util.span)
 # the training driver at full width (launch.train --mode recsys): 4 steps fed
@@ -736,13 +753,23 @@ def path_totals(by_k: dict) -> dict:
 
 def check_launches(path: str, plan, by_k: dict) -> None:
     """Every kernel the plan's stages run was launched on this path, and no
-    other kernel was."""
+    other Transform kernel was (the model's are counted by
+    ``check_bag_launches``)."""
     want = {STAGE_KERNELS[st.kind] for st in plan.stages if st.kind in STAGE_KERNELS}
     for name, n in path_totals(by_k).items():
+        if name in MODEL_KERNELS:
+            continue
         if name in want:
             check(n > 0, f"{path}: {name} was never launched")
         else:
             check(n == 0, f"{path}: {name} launched {n} times, but is not in the plan")
+
+
+def check_bag_launches(path: str, launches: dict, steps: int) -> None:
+    """One embedding bag forward and one backward launch a train step."""
+    got = {name: launches[name] for name in MODEL_KERNELS}
+    check(got == dict.fromkeys(MODEL_KERNELS, steps),
+          f"{path}: {steps} train steps launched the embedding bag {got}")
 
 
 def phase_main_path(dev):
@@ -1729,7 +1756,11 @@ def phase_mesh(dev, spec, root: Path, fused_batches: dict) -> dict:
     w = mesh_weights(cfg, mb["lengths"].shape[0], dev)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    pooled = RS.embedding_bag(tables, mb["multi_hot_ids"], mb["lengths"], mb["one_hot_ids"])
+    # the witness is the plain bag, whose F.embedding_bag the row-sharded bag
+    # shares; the one-device kernels sum in another order and are held to it
+    # and to float64 by phase_embedding
+    pooled = RS.embedding_bag_plain(tables, mb["multi_hot_ids"], mb["lengths"],
+                                    mb["one_hot_ids"])
     (pooled * w).sum().backward()
     b.record()
     b.synchronize()
@@ -1878,6 +1909,200 @@ def train_setup(cfg, model):
     return opt, init_state(model, opt), (lambda m, b: RS.loss_fn(m, b, cfg))
 
 
+def bag_inputs(cfg, dev, rng, batch: dict | None = None):
+    """The bag's (multi_ids, lengths, one_ids) at BAG_ROWS rows: `batch`'s
+    where given (a delivered batch), else drawn as the Transform shapes
+    them: lengths near the config's mean, ids skewed towards small raw ids
+    then hashed over the table, generated ids on one of 1,025 buckets."""
+    if batch is not None:
+        return batch["multi_hot_ids"], batch["lengths"], batch["one_hot_ids"]
+    d = cfg.data
+    b, s, L, g, r = BAG_ROWS, d.n_sparse, d.max_sparse_len, d.n_generated, d.embedding_rows
+    lengths = np.clip(rng.poisson(d.avg_sparse_len, (b, s)), 0, L)
+    u = rng.random((b, s, L))
+    multi = (u * u * (d.id_space - 1)).astype(np.int64) * 2654435761 % d.id_space % r
+    one = rng.integers(0, d.bucket_size + 1, (b, g)) * 487 % r
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (multi, lengths, one))
+
+
+def hold_bag_grad(name: str, grad, grad_out, counts, keys, r: int) -> float:
+    """A table gradient against the float64 sum of its terms
+    grad_out[b, t] / count[b, t], row by row within (k + 2) 2^-24 S (k the
+    row's contributions, S the sum of their magnitudes: float32 recursive
+    summation's bound with each quotient's rounding), and exactly 0 on every
+    row no position touches; a table at a time.  Returns the largest gap."""
+    t, _, d = grad.shape
+    p = keys.shape[1]
+    flat = keys.reshape(-1)
+    worst = 0.0
+    for i in range(t):
+        pos = torch.nonzero((flat >= i * r) & (flat < (i + 1) * r)).squeeze(1)
+        row = flat[pos].long() - i * r
+        term = grad_out[pos // p, i].double() / counts[pos // p, i].clamp_min(1).double()[:, None]
+        rows, inv = torch.unique(row, return_inverse=True)
+        want = torch.zeros(len(rows), d, dtype=torch.float64, device=grad.device)
+        mag = torch.zeros_like(want)
+        want.index_add_(0, inv, term)
+        mag.index_add_(0, inv, term.abs())
+        k = torch.bincount(inv, minlength=len(rows)).double()[:, None]
+        gap = (grad[i, rows].double() - want).abs()
+        check(bool((gap <= (k + 2) * 2.0**-24 * mag).all()),
+              f"{name}: table {i}'s gradient is past the float64 bound")
+        touched = torch.nonzero(grad[i].ne(0).any(1)).squeeze(1)
+        check(bool(torch.isin(touched, rows).all()), f"{name}: an untouched row of table {i}")
+        worst = max(worst, float(gap.max()) if gap.numel() else 0.0)
+    return worst
+
+
+def bag_device_ms(fn, reps: int, flush: torch.Tensor) -> float | None:
+    """The mean device time a call of `fn` from the profiler, everything it
+    runs on the card (fills and memsets included: the plain backward's
+    zero-fill is part of its work), L2 flushed by a ``bitwise_not_`` that is
+    left out; None where three sessions held no device records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and "bitwise_not" not in e.key)
+        if total > 0:
+            return total / reps / 1e3
+    return None
+
+
+def bag_timings(tables, multi, lengths, one, grad_out, counts, keys, errs) -> list:
+    """The bag's kernel-table rows at rm2's shapes: the forward and the
+    backward (its sort included), each beside its bytes' bound, the plain
+    version and ``F.embedding_bag`` over the valid ids in "mean" mode (the
+    one PyTorch call that computes the same function) as the yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding as emb
+    from repro_torch.models import recsys as RS
+
+    t, r, d = tables.shape
+    b = multi.shape[0]
+    flat = keys.reshape(-1)
+    valid = flat < t * r
+    n_valid = int(valid.sum())
+    ids = flat[valid].long()
+    sizes = counts.reshape(-1).long()
+    offsets = torch.cumsum(sizes, 0) - sizes
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=tables.device)  # 256 MB > L2
+    x = tables.detach()
+    shapes = (tuple(tables.shape), tuple(multi.shape))
+
+    def yard():
+        return F.embedding_bag(ids, tables.view(t * r, d), offsets, mode="mean")
+
+    plain_out, yard_out = RS.embedding_bag_plain(tables, multi, lengths, one), yard()
+    flat_grad = grad_out.reshape(b * t, d)
+    cases = {
+        "embedding_bag": dict(
+            run=lambda: emb.forward(x, multi, lengths, one),
+            plain=lambda: RS.embedding_bag_plain(x, multi, lengths, one),
+            yard=lambda: F.embedding_bag(ids, x.view(t * r, d), offsets, mode="mean"),
+            nbytes=(n_valid * d + multi.numel() + lengths.numel() + one.numel() + b * t * d
+                    + b * t + keys.numel()) * 4,
+            ops=n_valid * d + b * t * d),
+        "embedding_bag.backward": dict(
+            run=lambda: emb.backward(grad_out, counts, keys, *shapes),
+            plain=lambda: torch.autograd.grad(plain_out, tables, grad_out, retain_graph=True),
+            yard=lambda: torch.autograd.grad(yard_out, tables, flat_grad, retain_graph=True),
+            nbytes=(t * r * d + b * t * d + keys.numel() + b * t) * 4, ops=2 * n_valid * d),
+    }
+    rows = []
+    for name, c in cases.items():
+        bound_ms, bound_by = bound(c["nbytes"], c["ops"])
+        row = {
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "shape": [b, t, d], "bytes": c["nbytes"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": time_ms(c["run"], 20, flush), "device_ms": bag_device_ms(c["run"], 10, flush),
+            "plain_ms": time_ms(c["plain"], 5, flush),
+            "plain_device_ms": bag_device_ms(c["plain"], 5, flush), "library_ms": None,
+            "yardstick": 'F.embedding_bag(valid ids, offsets, mode="mean")'
+                         + (" and its backward" if name.endswith("backward") else ""),
+            "yardstick_ms": time_ms(c["yard"], 10, flush),
+            "yardstick_device_ms": bag_device_ms(c["yard"], 10, flush),
+            "max_abs_err": errs[name], "valid_positions": n_valid, "more_shapes": [],
+        }
+        print(f"kernel {name} rm2 {(b, t, d)}: {row['ms']:.5f} ms (device "
+              f"{fmt_ms(row['device_ms'])}), {row['bytes']} bytes, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms "
+              f"(device {fmt_ms(row['plain_device_ms'])}), yardstick {row['yardstick_ms']:.4f} "
+              f"ms (device {fmt_ms(row['yardstick_device_ms'])}) [{row['yardstick']}]; "
+              f"{n_valid} valid positions of {keys.numel()}")
+        rows.append(row)
+    return rows
+
+
+def phase_embedding(dev, rm2_batch: dict, errs: dict) -> list:
+    """The DLRM's embedding bag kernels against the plain version at rm2's
+    shapes (the main path's first delivered batch) and rm1's (drawn), the
+    tables at full size: the forward to rtol 1e-6 (both sum the valid rows
+    in position order), the kernel's and the plain gradient each within
+    ``hold_bag_grad``'s float64 bound, one launch of each pass, and the same
+    gradient bits from a second backward.  Then the rm2 rows of the kernel
+    table (``bag_timings``), returned without their launch counts."""
+    from repro_torch.configs.registry import get_recsys
+    from repro_torch.kernels import embedding as emb
+    from repro_torch.kernels import fused
+    from repro_torch.models import recsys as RS
+
+    rng = np.random.default_rng(BAG_SEED)
+    rows = []
+    for name in ("rm2", "rm1"):
+        t0 = time.perf_counter()
+        cfg = get_recsys(name)
+        t, r, d = cfg.n_tables, cfg.data.embedding_rows, cfg.emb_dim
+        multi, lengths, one = bag_inputs(cfg, dev, rng, rm2_batch if name == "rm2" else None)
+        gen = torch.Generator(dev).manual_seed(BAG_SEED)
+        tables = torch.empty((t, r, d), device=dev).normal_(generator=gen).mul_(0.01)
+        tables.requires_grad_(True)
+        grad_out = torch.empty((multi.shape[0], t, d), device=dev).normal_(generator=gen)
+        fused.reset_launches()
+        pooled = RS.embedding_bag(tables, multi, lengths, one)
+        pooled.backward(grad_out)
+        grad, tables.grad = tables.grad, None
+        check_bag_launches(f"bag {name}", fused.LAUNCHES, 1)
+        plain = RS.embedding_bag_plain(tables, multi, lengths, one)
+        plain.backward(grad_out)
+        plain_grad, tables.grad = tables.grad, None
+        pooled, plain = pooled.detach(), plain.detach()
+        torch.testing.assert_close(pooled, plain, rtol=1e-6, atol=0,
+                                   msg=lambda m: f"bag {name} forward: {m}")
+        _, counts, keys = emb.forward(tables.detach(), multi, lengths, one)
+        gap = hold_bag_grad(f"bag {name}", grad, grad_out, counts, keys, r)
+        plain_gap = hold_bag_grad(f"bag {name} plain", plain_grad, grad_out, counts, keys, r)
+        diff = max(float((grad[i] - plain_grad[i]).abs().max()) for i in range(t))
+        errs["embedding_bag"] = max(errs.get("embedding_bag", 0.0), max_abs_err(pooled, plain))
+        errs["embedding_bag.backward"] = max(errs.get("embedding_bag.backward", 0.0), diff)
+        del plain_grad
+        again = emb.backward(grad_out, counts, keys, tuple(tables.shape), tuple(multi.shape))
+        check(torch.equal(grad.view(torch.int32), again.view(torch.int32)),
+              f"bag {name}: two backward calls gave different bits")
+        del again, grad
+        print(f"bag {name}: tables {(t, r, d)}, {multi.shape[0]} rows, "
+              f"{int((keys < t * r).sum())} valid positions of {keys.numel()}; forward within "
+              f"{max_abs_err(pooled, plain):.3g} of plain (rtol 1e-6), gradient within the "
+              f"float64 bound (largest gap {gap:.3g}; plain's {plain_gap:.3g}; kernel against "
+              f"plain {diff:.3g}), bit-identical twice, one launch each pass; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if name == "rm2":
+            rows = bag_timings(tables, multi, lengths, one, grad_out, counts, keys, errs)
+        del tables, pooled, plain, grad_out, counts, keys
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_parity(dev) -> None:
     """The DLRM at reduced width (rm2's MLPs, tables of 1,024 rows) from the
     same weights and the same batches: three train steps on the card and on
@@ -1889,6 +2114,7 @@ def phase_train_parity(dev) -> None:
     from repro_torch.core.spec import TransformSpec
     from repro_torch.data.storage import PartitionedStore
     from repro_torch.data.synth import SyntheticRecSysSource
+    from repro_torch.kernels import fused
     from repro_torch.models import recsys as RS
     from repro_torch.train import make_train_step
 
@@ -1900,6 +2126,7 @@ def phase_train_parity(dev) -> None:
     batches = [cpu_engine.produce_batch(store, pid) for pid in range(3)]
     tree = RS.params_to_numpy(RS.init_params(torch.Generator().manual_seed(1), cfg, "cpu"))
     runs = {}
+    fused.reset_launches()
     for device in ("cpu", dev):
         opt, state, loss = train_setup(cfg, RS.params_from_numpy(tree, cfg, device))
         step = make_train_step(loss, opt)
@@ -1909,6 +2136,7 @@ def phase_train_parity(dev) -> None:
             losses.append(float(metrics["loss"]))
         runs[str(device)] = (losses, RS.params_to_numpy(state["params"]))
     (cpu_losses, cpu_params), (losses, params) = runs["cpu"], runs[str(dev)]
+    check_bag_launches("train parity", fused.LAUNCHES, len(batches))
     check(all(np.isfinite(losses)), f"reduced-width losses {losses}")
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
     atol, worst = TRAIN_LR[0] / 100, 0.0
@@ -1962,6 +2190,7 @@ def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
           f"{time.perf_counter() - t0:.2f} s")
     step = make_train_step(loss, opt)
     ms, losses = [], []
+    fused.reset_launches()
     for i, mb in enumerate(batches):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         if i == len(batches) - 1:  # the last step under the profiler
@@ -1976,6 +2205,7 @@ def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
             ms.append((a, b))
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
+    check_bag_launches("train", fused.LAUNCHES, len(batches))
     times = [a.elapsed_time(b) for a, b in ms]
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"full-width train losses {losses}")
@@ -2006,6 +2236,7 @@ def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
     ingest_losses = [float(x) for x in ingest_losses]
     launches = dict(fused.LAUNCHES)
     check_launches("ingest", engine.lowered_plan, {1: launches})
+    check_bag_launches("ingest", launches, 3)
     check(all(np.isfinite(ingest_losses)) and ingest_losses[-1] < ingest_losses[0],
           f"ingest losses {ingest_losses} do not fall on the repeated partition")
     peak = torch.cuda.max_memory_allocated()
@@ -2038,6 +2269,7 @@ def phase_train(dev, batches: list, engine, store, files: Path) -> dict:
     torch.cuda.synchronize()
     pipe_launches = dict(fused.LAUNCHES)
     check_launches("pipeline", engine.lowered_plan, {1: pipe_launches})
+    check_bag_launches("pipeline", pipe_launches, PIPELINE_STEPS)
     plosses = [m["loss"] for m in pmetrics]
     check(pstats.steps == PIPELINE_STEPS and all(np.isfinite(plosses)),
           f"pipeline: {pstats.steps} steps, losses {plosses}")
@@ -2077,12 +2309,14 @@ def train_split(prof) -> float | None:
         return sum(e.device_time_total for e in rows
                    if e.device_type == DeviceType.CPU and match(e.key))
 
-    emb_f = part(lambda k: k == "dlrm.embedding_bag")
-    # the autograd engine's span of the node holds the node's own span
+    # both passes launch under dlrm.embedding_bag; the backward's also lie
+    # under the autograd engine's span of its node
+    emb = part(lambda k: k == "dlrm.embedding_bag")
     emb_b = part(lambda k: k.startswith("autograd::engine::evaluate_function: "
                                         "EmbeddingBagBackward"))
+    emb_f = emb - emb_b
     opt = part(lambda k: k == "adamw")
-    rest = busy - emb_f - emb_b - opt
+    rest = busy - emb - opt
     print(f"train split (profiler, one step): device busy {busy / 1e3:.3f} ms; embedding "
           f"forward {emb_f / 1e3:.3f} ms, embedding backward {emb_b / 1e3:.3f} ms, MLPs + "
           f"interaction + loss {rest / 1e3:.3f} ms, optimizer {opt / 1e3:.3f} ms")
@@ -5649,6 +5883,8 @@ def main() -> int:
     engine, store, launches, fused_batches = phase_main_path(dev)
     torch.cuda.synchronize()
     lap("main path")
+    bag_rows = phase_embedding(dev, fused_batches[0], errs)
+    lap("embedding bag")
     engines, by_path = phase_host_paths(engine.spec, store, fused_batches)
     train_batches = [fused_batches[pid] for pid in range(8)]
     dedup_engines, dedup_by_path, dedup_pages = phase_dedup(dev)
@@ -5722,6 +5958,11 @@ def main() -> int:
     torch.cuda.synchronize()
     lap("breakdown")
     kernels = phase_timings(engines, store, dev, errs, by_path)
+    for row in bag_rows:  # the bag's launches, counted on the paths that train
+        row["launches_by_path"] = {path: path_totals(by_k)[row["name"]]
+                                   for path, by_k in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    kernels += bag_rows
     for name, e in dedup_engines.items():
         profile_transform(f"dedup {name}", e, dedup_pages)
     torch.cuda.synchronize()

@@ -22,7 +22,8 @@ from repro_torch.kernels import _build
 # launches of each kernel since the last ``reset_launches`` (a run's proof
 # that its path went through the kernels); one dict for all of them.  The
 # lengths decode runs the bitunpack kernel through its own entry point
-# (``decode.bitunpack_lengths``) and is counted apart as "bitunpack.lengths".
+# (``decode.bitunpack_lengths``) and is counted apart as "bitunpack.lengths";
+# the DLRM's embedding bag counts its forward and its backward apart.
 LAUNCHES = {
     "fused_dense": 0,
     "fused_sparse": 0,
@@ -33,6 +34,8 @@ LAUNCHES = {
     "sigridhash": 0,
     "bucketize": 0,
     "lognorm": 0,
+    "embedding_bag": 0,
+    "embedding_bag.backward": 0,
 }
 
 # dynamic shared memory one block may use on Hopper (227 KB)

@@ -36,6 +36,7 @@ from repro_torch.common.util import ShapeDtype, resolve_device, span
 from repro_torch.data.synth import RMDataConfig
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import entry_axes, shard
+from repro_torch.kernels import embedding as _emb
 from repro_torch.models.layers import ParamDef, Schema, init_from_schema, pspecs_from_schema
 
 GROUPS = ("bottom", "bottom_b", "top", "top_b")
@@ -209,28 +210,40 @@ def embedding_bag(
 
     Multi-hot table s pools the ids of position l < lengths[b, s]; one-hot
     table S + g pools its one id.  Ids outside [0, R) count nothing.  A bag
-    with no valid id pools to 0 (sum over max(count, 1)).  One
-    ``embedding_bag`` call over the tables viewed as (T*R, D) does it, with
-    each table's ids offset by t*R and the validity mask as per-sample
-    weights: the (B, S, L, D) gather is never materialised, and the
-    gradient of the tables is one dense (T, R, D) buffer."""
+    with no valid id pools to 0 (sum over max(count, 1)).  The gradient of
+    the tables is one dense (T, R, D) buffer.
+
+    CPU tensors take ``embedding_bag_plain``; CUDA tensors take the
+    hand-written kernels (``kernels.embedding``: int32 ids and lengths),
+    which launch or raise.  Both passes run under ``dlrm.embedding_bag``."""
     with span("dlrm.embedding_bag"):
-        t, r, d = tables.shape
-        b, s, L = multi_ids.shape
-        g = one_ids.shape[1]
-        dev = multi_ids.device
-        ids, valid, table_of, counts = _bag_ids(multi_ids, lengths, one_ids, r)
-        # where each of a sample's s*L + g bags starts
-        starts = torch.cat([torch.arange(s, device=dev) * L,
-                            s * L + torch.arange(g, device=dev)])
-        per_sample = s * L + g
-        offsets = (torch.arange(b, device=dev)[:, None] * per_sample + starts).reshape(-1)
-        flat = ids.clamp(0, r - 1) + table_of * r
-        pooled = F.embedding_bag(
-            flat.reshape(-1), tables.reshape(t * r, d), offsets, mode="sum",
-            per_sample_weights=valid.reshape(-1).to(tables.dtype),
-        ).reshape(b, t, d)
-        return pooled / counts.clamp_min(1)[..., None].to(pooled.dtype)
+        if tables.device.type == "cpu":
+            return embedding_bag_plain(tables, multi_ids, lengths, one_ids)
+        return _emb.EmbeddingBag.apply(tables, multi_ids.contiguous(), lengths.contiguous(),
+                                       one_ids.contiguous())
+
+
+def embedding_bag_plain(tables, multi_ids, lengths, one_ids) -> torch.Tensor:
+    """``embedding_bag`` in plain PyTorch: one ``F.embedding_bag`` call over
+    the tables viewed as (T*R, D), with each table's ids offset by t*R and
+    the validity mask as per-sample weights: the (B, S, L, D) gather is
+    never materialised."""
+    t, r, d = tables.shape
+    b, s, L = multi_ids.shape
+    g = one_ids.shape[1]
+    dev = multi_ids.device
+    ids, valid, table_of, counts = _bag_ids(multi_ids, lengths, one_ids, r)
+    # where each of a sample's s*L + g bags starts
+    starts = torch.cat([torch.arange(s, device=dev) * L,
+                        s * L + torch.arange(g, device=dev)])
+    per_sample = s * L + g
+    offsets = (torch.arange(b, device=dev)[:, None] * per_sample + starts).reshape(-1)
+    flat = ids.clamp(0, r - 1) + table_of * r
+    pooled = F.embedding_bag(
+        flat.reshape(-1), tables.reshape(t * r, d), offsets, mode="sum",
+        per_sample_weights=valid.reshape(-1).to(tables.dtype),
+    ).reshape(b, t, d)
+    return pooled / counts.clamp_min(1)[..., None].to(pooled.dtype)
 
 
 def _mlp(ws, bs, x: torch.Tensor, n: int) -> torch.Tensor:

@@ -44,3 +44,18 @@ def sim_harness():
         return SimHarness(seed=seed, **service_kwargs)
 
     return make
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
+
+
+@pytest.fixture
+def card():
+    """The CUDA card a ``card`` test runs on; skips on a machine without one
+    (decided here, never while a module is imported)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
